@@ -1,4 +1,4 @@
-"""edm-tpu: a TPU-native (JAX/XLA/Pallas) experiment-directed metadynamics
+"""edm-tpu: a JAX (XLA, with Pallas kernels) experiment-directed metadynamics
 framework with the capabilities of whitead/electronic-dance-music.
 
 Layering (cf. SURVEY.md §1):

@@ -1,4 +1,4 @@
-"""The EDM bias engine — TPU-native equivalent of the reference's ``EDMBias``
+"""The EDM bias engine — JAX equivalent of the reference's ``EDMBias``
 (lib/edm_bias.{h,cpp}).
 
 The reference is a mutable singleton driven one hill at a time; here the
@@ -92,7 +92,7 @@ class BiasParams:
     total_volume: float = dataclasses.field(metadata=dict(static=True))
     b_outofbounds: bool = dataclasses.field(metadata=dict(static=True), default=False)
     # Force the reference-exact windowed deposit in engine rounds even where
-    # a separable fast path exists (multi-dim grids: the MXU paths carry the
+    # a separable fast path exists (multi-dim grids: the matmul paths carry the
     # square-support corner class, ~e^-8 of the hill integral — README
     # "Parity with the reference").  For bit-level reference pins.
     exact_deposit: bool = dataclasses.field(metadata=dict(static=True), default=False)
@@ -430,7 +430,10 @@ def add_hills_round(
     pref = round_prefactor(params, state)
 
     # deposit strategy: for small 1-D CV grids the dense (G, H) unit tables
-    # replace window evaluation + scatter with matvecs (see dense_tables_1d)
+    # replace window evaluation + scatter with matvecs (see dense_tables_1d).
+    # A matvec sums in a fixed order, so replicated pair-CV grids stay
+    # bitwise identical across devices and runs; a GPU scatter-add does not
+    # promise that (it was slightly faster at the pair-CV shape, PERF.md)
     gspec1 = state.bias.spec
     use_dense = (
         D == 1
@@ -440,7 +443,7 @@ def add_hills_round(
         and (not gspec1.grid.periodic[0] or gspec1.window_shape[0] < gspec1.grid.nbins[0])
     )
     # 2-D/3-D fully-periodic grids: separable outer-product deposition on
-    # the MXU (ops/deposit.dense_tables_sep; square-support divergence in
+    # matmuls (ops/deposit.dense_tables_sep; square-support divergence in
     # the README ledger) — the windowed scatter path is ~100x slower at
     # 1e6-point grids under heavy hill load
     use_dense2 = (
@@ -450,7 +453,7 @@ def add_hills_round(
         and all(gspec1.boundary_periodic)
         and all(w < n for w, n in zip(gspec1.window_shape, gspec1.grid.nbins))
     )
-    # 2-D/3-D grids with McGovern-De Pablo corrected dims: separable MXU
+    # 2-D/3-D grids with McGovern-De Pablo corrected dims: separable matmul
     # terms for the decaying Gaussian parts + exact-spherical-mask strip
     # fields for the boundary-correction parts (ops/deposit.
     # dense_tables_mcgdp, chunked over hills)

@@ -1,4 +1,4 @@
-"""Gaussian-hill grid — TPU-native equivalent of the reference's
+"""Gaussian-hill grid — JAX equivalent of the reference's
 ``DimmedGaussGrid`` (lib/gaussian_grid.h:41-631).
 
 A ``GaussGrid`` is a pytree composing a derivative-carrying ``Grid`` with the

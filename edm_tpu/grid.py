@@ -1,4 +1,4 @@
-"""Dense N-D grid storage for EDM — the TPU-native equivalent of the
+"""Dense N-D grid storage for EDM — the JAX equivalent of the
 reference's ``DimmedGrid<DIM>`` (reference: lib/grid.h:184-905).
 
 Design: the reference is a mutable C++ class; here a grid is a pure pytree

@@ -1,13 +1,12 @@
-"""Cell lists for short-range pair interactions — the TPU-native neighbor
-structure (stands in for LAMMPS's neighbor lists, which the reference
-consumes in fix_edm_pair.cpp:166-206).
+"""Cell lists for short-range pair interactions — the neighbor structure
+that stands in for LAMMPS's neighbor lists, which the reference consumes in
+fix_edm_pair.cpp:166-206.
 
 Design: atoms are binned into cells of edge >= the interaction range, so
 all interacting pairs live within a 27-cell stencil.  Per-cell storage is a
-fixed-capacity (C, cap) slot table; the pair pass fetches each cell's 27
-stencil blocks with *contiguous block gathers* (cheap DMA) and evaluates a
-dense (cap, 27*cap) pair tile — no per-pair index gathers, which cost
-~8 ns/element on TPU and would otherwise dominate the step.
+fixed-capacity (C, cap) slot table; the pair pass (ops/cellforce.py) reads
+each cell's 27 stencil blocks and evaluates a dense (cap, 27*cap) pair
+tile, with no per-pair neighbour lists.
 
 Everything is jit-compatible: the binning (argsort + segment ranks) runs
 in-graph under a rebuild-stride ``lax.cond``.
@@ -41,9 +40,8 @@ class CellSpec:
         if cap is None:
             density = n_atoms / (box[0] * box[1] * box[2])
             mean = density * edge[0] * edge[1] * edge[2]
-            # mean + 4 sigma Poisson headroom, rounded up to the TPU f32
-            # sublane tile (8): padding is paid anyway, so claim it as real
-            # capacity; slot count scales ~cap^2 so slack is quadratic cost.
+            # mean + 4 sigma Poisson headroom, rounded up to a multiple of
+            # 8; slot count scales ~cap^2 so slack is quadratic cost.
             # Overflow is detected at table build and surfaced as a flag.
             cap = max(8, int(math.ceil(mean + 4 * math.sqrt(max(mean, 1.0)))))
             cap = ((cap + 7) // 8) * 8
@@ -119,7 +117,7 @@ class RebinPlan(NamedTuple):
 
 
 def plan_incremental_rebin(
-    spec: CellSpec, Cg: int, aid_g: jax.Array, xs: jax.Array, mover_cap: int
+    spec: CellSpec, aid_g: jax.Array, xs: jax.Array, mover_cap: int
 ) -> RebinPlan:
     """Plan a slot-to-slot rebin: stayers keep their slots; atoms that
     crossed a cell boundary since the last rebuild ("movers", ~1-2% of
@@ -127,17 +125,16 @@ def plan_incremental_rebin(
     and assigned free holes of their target cells.
 
     The full argsort rebuild round-trips every atom through atom order —
-    ~2M gather/scatter elements at 100k atoms (~11 ms at the measured v5e
-    rates) — while this plan's cost is one S-element compaction scatter
-    plus O(mover_cap) work.  ``feasible`` is False when movers exceed
+    ~2M gather/scatter elements at 100k atoms — while this plan's cost is
+    one S-element compaction scatter plus O(mover_cap) work.  ``feasible`` is False when movers exceed
     ``mover_cap`` or a target cell lacks holes (holes include slots
     vacated this rebin); callers then fall back to the full rebuild, so
     no atom is ever dropped."""
     n = spec.n_atoms
     cap = spec.cap
     C = spec.n_cells
-    S = Cg * cap
-    aid2 = aid_g.reshape(Cg, cap)
+    S = C * cap
+    aid2 = aid_g.reshape(C, cap)
     real = aid_g < n
     new_cid = cell_of(spec, xs.reshape(S, 3))
     cur_cid = (jnp.arange(S, dtype=jnp.int32) // cap)
@@ -162,12 +159,12 @@ def plan_incremental_rebin(
 
     # holes: pre-existing empty slots plus slots vacated by movers, so
     # cell-to-cell swaps at full occupancy stay feasible
-    empty_eff = (aid2 == n) | mover.reshape(Cg, cap)
+    empty_eff = (aid2 == n) | mover.reshape(C, cap)
     hrank = jnp.cumsum(empty_eff.astype(jnp.int32), axis=1) - 1
     holes_per_cell = hrank[:, -1] + 1
     # ht[c, q] = the q-th hole slot of cell c (slot order), via a one-hot
-    # rank sum — a per-row argsort over (Cg, cap) costs ~1 ms at 100k on
-    # v5e while this fuses into one (Cg, cap, cap) masked reduction
+    # rank sum, which fuses into one (C, cap, cap) masked reduction instead
+    # of a per-row argsort over (C, cap)
     qi = jnp.arange(cap, dtype=jnp.int32)
     oh = empty_eff[:, :, None] & (hrank[:, :, None] == qi[None, None, :])
     ht = jnp.sum(
@@ -175,7 +172,7 @@ def plan_incremental_rebin(
     ).astype(jnp.int32)
 
     valid = m_src_s < S
-    c_cl = jnp.clip(m_cell_s, 0, Cg - 1)
+    c_cl = jnp.clip(m_cell_s, 0, C - 1)
     slot = ht[c_cl, jnp.clip(q, 0, cap - 1).astype(jnp.int32)]
     fits = q < holes_per_cell[c_cl]
     m_dest = jnp.where(valid & fits, c_cl * cap + slot, S).astype(jnp.int32)

@@ -1,4 +1,4 @@
-"""Coordinate-CV EDM host — the TPU-native equivalent of LAMMPS ``fix edm``
+"""Coordinate-CV EDM host — the JAX equivalent of LAMMPS ``fix edm``
 (reference lammps/fix_edm.cpp): biases raw particle coordinates (1-3 dims)
 during a Langevin MD run.
 

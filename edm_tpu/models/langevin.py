@@ -1,7 +1,7 @@
 """Langevin dynamics integrator (BAOAB splitting).
 
 The reference delegates integration to LAMMPS (fix nve + fix langevin);
-this module is the TPU-native MD front end: a pure, jit-compatible step.
+this module is the MD front end: a pure, jit-compatible step.
 BAOAB gives accurate configurational sampling at large dt — the right choice
 for sampling-driven metadynamics.
 

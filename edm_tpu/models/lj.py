@@ -1,10 +1,10 @@
 """Lennard-Jones fluid forces — the physical system under the pairwise EDM
 host (stands in for LAMMPS pair_lj_cut).
 
-Dense O(N^2) pair math with minimum-image convention, fully vectorized: at
-bench scales (1e4 atoms) the distance matrix is MXU/VPU-friendly and beats
-pointer-chasing neighbor lists on TPU; the blocked variant (lax.map over row
-blocks) bounds memory to O(block*N) for larger N.
+Dense O(N^2) pair math with minimum-image convention, fully vectorized;
+the blocked variant (lax.map over row blocks) bounds memory to O(block*N)
+for larger N, and the cell hosts (models/pair_edm_cells.py) make the pair
+work O(N).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Pairwise-distance EDM host — TPU-native equivalent of LAMMPS
+"""Pairwise-distance EDM host — JAX equivalent of LAMMPS
 ``fix edm_pair`` (reference lammps/fix_edm_pair.cpp): biases the pair-distance
 CV of a LJ fluid toward a target RDF-derived PMF.
 
@@ -16,7 +16,7 @@ Reference mapping:
   bias domain [0, cutoff+skin]      -> the .edm box; grid replicated per
                                        device, psum-merged under shard_map
 
-TPU-native hill compaction: with ``hill_density`` set, only
+Hill compaction: with ``hill_density`` set, only
 ~hill_density hills are accepted per round out of O(N^2) candidate pairs, so
 accepted pairs are compacted (stable argsort on the accept mask) into a
 fixed-capacity hill batch before the expensive window evaluation — the

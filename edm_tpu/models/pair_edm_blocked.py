@@ -5,7 +5,7 @@
 This is the bench/production path for 1e4-1e5 atoms on a single chip:
 - force pass: per-block minimum-image displacements, fused LJ + bias-CV
   gradient lookup, row-summed forces — XLA keeps the (block, N) tiles in
-  registers/VMEM and never materializes the full pair matrix;
+  on chip and never materializes the full pair matrix;
 - hill pass: per-block stochastic acceptance with a carried running count,
   compacting accepted pair distances into a fixed-capacity hill batch via
   prefix-rank scatter (no N^2 argsort).
@@ -93,9 +93,9 @@ def make_step_blocked(
         """Two-level stochastic hill collection.
 
         Acceptance is ultra-sparse (~hill_density accepts out of O(N^2)
-        candidates), and XLA TPU scatters cost ~5 ns per SOURCE element, so
-        compacting accepted pairs directly from the candidate stream would
-        cost ~0.5 s at 1e8 candidates.  Instead:
+        candidates), and a scatter's cost scales with its SOURCE elements,
+        so compacting accepted pairs directly from the candidate stream
+        would pay for every candidate.  Instead:
 
           pass 1 (blocked, reduction-only): per-row accepted counts and the
                  global candidate count — no scatter;

@@ -1,22 +1,16 @@
-"""Cell-list pairwise EDM — the production large-N host (1e4-1e5 atoms on a
-chip): same physics as pair_edm.py / fix_edm_pair, with O(N) pair work.
+"""Cell-list pairwise EDM — the production large-N host (1e4-1e5 atoms on one
+device): same physics as pair_edm.py / fix_edm_pair, with O(N) pair work.
 
 SLOT-RESIDENT layout: the MD state (positions/velocities/forces) lives in
-cell-slot order ``(Cg, cap, 3)`` between table rebuilds, so the per-step
-pipeline runs no per-atom gathers or scatters at all:
+cell-slot order ``(C, cap, 3)`` between table rebuilds, so the per-step
+pipeline runs no per-atom gathers or scatters:
 
-  1. force pass (default ``use_pallas=True``): half-stencil Newton Pallas
-     kernel — each cross-cell pair evaluated once from its
-     lexicographically-low cell, reverse forces accumulated in-kernel
-     into VMEM-resident force planes (ops/cellforce_pallas; planar
-     roll-built candidate views, no gathers).  The kernel evaluates
-     either the Chebyshev table (pair_lookup='chebyshev') or the exact
-     cubic-Hermite grid table (pair_lookup='interp' -> in-kernel
-     HermiteTable fetch), with optional rdf type-pair CV filtering via
-     cached slot-type planes.  Variants: "newton" (host-side credit
-     rolls, used per sub-lattice by the slab-sharded mode), "full"
-     (legacy 27-stencil ordered pairs; Chebyshev-only, untyped; the only
-     consumer of the sid/nid id masks), False (XLA chunked tiles);
+  1. force pass: the full-stencil cell-lattice pass of ops/cellforce.py —
+     LJ plus the pair-CV bias from either the Chebyshev table
+     (pair_lookup='chebyshev') or the exact cubic-Hermite grid lookup
+     (pair_lookup='interp'), with optional rdf type-pair CV filtering.
+     ``force_impl`` picks the plain-XLA implementation or the Pallas
+     Triton kernel (ops/cellforce_triton.py, NVIDIA GPUs);
   2. BAOAB integration directly on slot arrays (padded slots are masked
      out of all pair math and hill collection); thermostat noise comes
      from a counter-hash Box-Muller stream keyed by GLOBAL slot row
@@ -28,8 +22,7 @@ pipeline runs no per-atom gathers or scatters at all:
      cells (models/cells.plan_incremental_rebin; work ~ movers, not
      atoms).  Infeasible plans (mover_cap exceeded / a full target cell)
      fall back in-graph to the full argsort rebuild, which also refreshes
-     ``core.x/v/f``; states are "light" (no stencil id masks) unless
-     init_cell_state(..., with_ids=True), which always rebuilds fully;
+     ``core.x/v/f``;
   4. hill rounds: two-level collection on half-stencil tiles — per-slot
      accepted counts (counter-hash uniforms, ops/hashrng; two draws per
      unordered pair = the reference's two ordered candidates), slot
@@ -46,8 +39,7 @@ for an up-to-date atom-order view.
 ``slab_axis``/``slab_ndev`` shard the force pass over a 1-D mesh (see
 parallel.make_slab_cell_step); ``brick_axes``/``brick_ndev`` decompose it
 over a 2-D (px, py) or 3-D (px, py, pz) device grid with a one-cell halo
-ring along every bricked dim (see parallel.make_brick_cell_step) — the
-pod-scale decomposition (2-D for v5e/v6 tori, 3-D for v4/v5p tori).
+ring along every bricked dim (see parallel.make_brick_cell_step).
 
 The cell edge is max(lj.rcut, bias domain) + skin, so both force laws and
 the hill candidate set live within the stencil.  The per-atom BAOAB noise
@@ -65,6 +57,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import bias as B
+from ..ops.cellforce import HALF_OFFSETS, lattice_force, stencil_views
 from ..ops.chebyshev import fit_gauss_grid
 from .cells import CellSpec, build_table
 from .langevin import LangevinParams
@@ -76,376 +69,54 @@ from .pair_edm import PairEDMState
 @dataclasses.dataclass(frozen=True)
 class CellPairState:
     core: PairEDMState  # x/v/f in atom order, refreshed at rebuilds only
-    aid: jax.Array  # (Cg*cap,) slot -> atom id (n_atoms = empty)
-    xs: jax.Array  # (Cg, cap, 3) slot positions (authoritative)
-    vs: jax.Array  # (Cg, cap, 3)
-    fs: jax.Array  # (Cg, cap, 3)
-    mc: jax.Array  # (Cg, cap) 1.0 for real local atoms (cached per rebuild)
-    mn: Optional[jax.Array]  # (Cg, 27cap); None in light states (id masks
-    sid: Optional[jax.Array]  # are only consumed by the legacy "full"
-    nid: Optional[jax.Array]  # 27-stencil kernel and the XLA id paths)
+    aid: jax.Array  # (C*cap,) slot -> atom id (n_atoms = empty)
+    xs: jax.Array  # (C, cap, 3) slot positions (authoritative)
+    vs: jax.Array  # (C, cap, 3)
+    fs: jax.Array  # (C, cap, 3)
+    mc: jax.Array  # (C, cap) 1.0 for real local atoms (cached per rebuild)
     table_overflow: jax.Array  # bool
-    ts: Optional[jax.Array] = None  # (Cg, cap) slot atom types (float; 0 =
-    # empty), cached per rebuild — only for type-filtered Pallas runs
-    # (init_cell_state(..., types=...))
-    mnf: Optional[jax.Array] = None  # (Cg, 13cap) rolled half-stencil
-    # candidate mask (HALF_OFFSETS order), cached per rebuild/rebin:
-    # occupancy changes only when slots move, so rebuilding it per step
-    # (13 strided lattice rolls + an ~11 MB concat at 100k atoms) wastes
-    # HBM bandwidth on the hot force path
-    tnf: Optional[jax.Array] = None  # (Cg, 13cap) rolled half-stencil type
-    # plane, cached alongside ``ts`` for type-filtered Pallas runs
-    mkf: Optional[jax.Array] = None  # (Cg, 13*kernel_cap) rolled candidate
-    # mask of the LOW slots only — the reduced-cap Newton kernel's
-    # candidate plane (make_cell_step(kernel_cap=...)); cached per
-    # rebuild/rebin alongside ``mnf`` (hills keep the full-cap plane)
-    ovl: Optional[jax.Array] = None  # (overflow_cap,) int32 flat slot ids
-    # of occupied TAIL slots (slot >= kernel_cap; sentinel = Cg*cap),
-    # compacted per rebuild/rebin — the dense overflow side pass's row
-    # list (ops/cellforce_pallas.overflow_forces_pallas)
-    tail_count: Optional[jax.Array] = None  # int32 current tail population
-    # (sum over cells of max(0, occupancy - kernel_cap)); telemetry +
-    # fallback input, refreshed at every rebuild/rebin
-    tail_ovf: Optional[jax.Array] = None  # bool: tail_count > overflow_cap
-    # for the CURRENT rebuild period -> the force pass runs the FULL-CAP
-    # kernel this period (never-drop fallback; the reference evaluates
-    # every neighbor pair unconditionally, fix_edm_pair.cpp:177-227).
-    # NOT an error and NOT sticky: forces stay exact, only slower.
-    tail_fallbacks: Optional[jax.Array] = None  # int32 cumulative count of
-    # rebuild periods (incl. init) that ran at full cap (telemetry)
+    mnf: jax.Array  # (C, 13cap) rolled half-stencil candidate mask
+    # (HALF_OFFSETS order), cached per rebuild/rebin for the hill
+    # collection: occupancy changes only when slots move
 
 
-def _padded_cells(spec: CellSpec) -> int:
-    from ..ops.cellforce_pallas import CELLS_PER_PROGRAM
-
-    return -(-spec.n_cells // CELLS_PER_PROGRAM) * CELLS_PER_PROGRAM
-
-
-def _stencil_padded(spec: CellSpec, Cg: int) -> jnp.ndarray:
-    sten = np.asarray(spec.stencil())
-    return jnp.asarray(
-        np.concatenate([sten, np.zeros((Cg - spec.n_cells, 27), np.int32)], 0)
-    )
-
-
-def _tail_list(aid2, n: int, cap: int, kcap: int, ocap: int):
-    """Compact flat slot ids of occupied TAIL slots (slot >= kcap).
-
-    Returns ((ocap,) int32 ids, sentinel Cg*cap for empties; int32 tail
-    population — when it exceeds ``ocap`` the list is incomplete and the
-    step falls back to the full-cap kernel for the period, see
-    CellPairState.tail_ovf).  The tail population is the sum over cells of
-    max(0, occupancy - kcap) after a full (argsort-packed) rebuild, and can
-    only change at rebins — movers fill the LOWEST holes first
-    (models/cells.plan_incremental_rebin's hrank), so slots >= kcap fill
-    only when a cell's low slots are all taken."""
-    Cg = aid2.shape[0]
-    S = Cg * cap
-    occ = (aid2[:, kcap:] < n).reshape(-1)
-    sids = (
-        jnp.arange(Cg, dtype=jnp.int32)[:, None] * cap
-        + jnp.arange(kcap, cap, dtype=jnp.int32)[None, :]
-    ).reshape(-1)
-    ranks = jnp.cumsum(occ.astype(jnp.int32)) - 1
-    tgt = jnp.where(occ, ranks, ocap)
-    ovl = jnp.full((ocap,), S, jnp.int32).at[tgt].set(sids, mode="drop")
-    count = jnp.sum(occ.astype(jnp.int32))
-    return ovl, count
-
-
-def _slots_from_atoms(spec: CellSpec, Cg: int, sten_g, x, v, f, aid_g,
-                      with_ids: bool = True, types_arr=None,
-                      kernel_cap=None, overflow_cap: int = 128):
-    """Gather atom arrays into slot layout + rebuild the cached masks.
-
-    ``with_ids=False`` skips the (Cg, 27cap) stencil mask/id arrays (only
-    the legacy "full" kernel consumes them); when built, they come from 27
-    lattice rolls of the per-cell arrays — the translation-regular stencil
-    makes rolls equivalent to (and much faster than) the row gather.
-    ``types_arr`` (N,) builds the cached per-slot type plane (0 = empty)."""
+def _slots_from_atoms(spec: CellSpec, x, v, f, aid):
+    """Gather atom arrays into slot layout + rebuild the cached masks."""
     n = spec.n_atoms
-    cap = spec.cap
-    aid_c = jnp.clip(aid_g, 0, n - 1)
-    xs = x[aid_c].reshape(Cg, cap, 3)
-    vs = v[aid_c].reshape(Cg, cap, 3)
-    fs = f[aid_c].reshape(Cg, cap, 3)
-    aid2 = aid_g.reshape(Cg, cap)
-    dtype = x.dtype
-    mc = (aid2 < n).astype(dtype)
-    ts = (
-        None
-        if types_arr is None
-        else jnp.where(aid2 < n, jnp.asarray(types_arr)[aid_c].reshape(Cg, cap), 0).astype(dtype)
-    )
-    if with_ids:
-        C = spec.n_cells
-        nx, ny, nz = spec.ncells
-        sid = aid2.astype(dtype)
-        nid_g = jnp.where(aid2 < n, sid, -1.0)[:C].reshape(nx, ny, nz, cap)
-        pieces = []
-        for di in (-1, 0, 1):
-            for dj in (-1, 0, 1):
-                for dk in (-1, 0, 1):
-                    pieces.append(
-                        jnp.roll(nid_g, (-di, -dj, -dk), (0, 1, 2)).reshape(C, cap)
-                    )
-        nid = jnp.concatenate(pieces, axis=1)
-        if Cg > C:
-            nid = jnp.concatenate(
-                [nid, jnp.full((Cg - C, 27 * cap), -1.0, dtype)], 0
-            )
-        mn = (nid >= 0).astype(dtype)
-    else:
-        mn = sid = nid = None
-    # park padded slots at the cell of origin's first real coordinate is
-    # unnecessary: they are masked from pair math and hills; zeros suffice
-    xs = xs * mc[..., None]
-    vs = vs * mc[..., None]
-    fs = fs * mc[..., None]
-    mnf = _half_concat(mc, spec.ncells, cap, Cg)
-    tnf = None if ts is None else _half_concat(ts, spec.ncells, cap, Cg)
-    if kernel_cap is not None:
-        mkf = _half_concat(mc[:, :kernel_cap], spec.ncells, kernel_cap, Cg)
-        ovl, tail_count = _tail_list(aid2, n, cap, kernel_cap, overflow_cap)
-    else:
-        mkf, ovl, tail_count = None, None, None
-    return xs, vs, fs, mc, mn, sid, nid, ts, mnf, tnf, mkf, ovl, tail_count
+    C, cap = spec.n_cells, spec.cap
+    aid_c = jnp.clip(aid, 0, n - 1)
+    mc = (aid.reshape(C, cap) < n).astype(x.dtype)
+    # empty slots are zeroed: they are masked from pair math and hills
+    xs = x[aid_c].reshape(C, cap, 3) * mc[..., None]
+    vs = v[aid_c].reshape(C, cap, 3) * mc[..., None]
+    fs = f[aid_c].reshape(C, cap, 3) * mc[..., None]
+    return xs, vs, fs, mc, _half_concat(mc, spec.ncells, cap)
 
 
-def _atoms_from_slots(spec: CellSpec, aid_g, xs, vs, fs):
+def _atoms_from_slots(spec: CellSpec, aid, xs, vs, fs):
     """Scatter slot arrays back to atom order (each atom in exactly one
     slot; padded slots drop out of bounds)."""
     n = spec.n_atoms
-    idx = jnp.where(aid_g < n, aid_g, n)
+    idx = jnp.where(aid < n, aid, n)
     x = jnp.zeros((n, 3), xs.dtype).at[idx].set(xs.reshape(-1, 3), mode="drop")
     v = jnp.zeros((n, 3), xs.dtype).at[idx].set(vs.reshape(-1, 3), mode="drop")
     f = jnp.zeros((n, 3), xs.dtype).at[idx].set(fs.reshape(-1, 3), mode="drop")
     return x, v, f
 
 
-def _half_concat(plane, ncells, cap, Cg, fill=0.0):
-    """(Cg, cap) per-slot plane -> (Cg, 13cap) half-stencil candidate concat
-    (HALF_OFFSETS roll order); padded cells filled with ``fill``."""
-    from ..ops.cellforce_pallas import HALF_OFFSETS
-
+def _half_concat(plane, ncells, cap):
+    """(C, cap) per-slot plane -> (C, 13cap) half-stencil candidate concat
+    (HALF_OFFSETS roll order)."""
     nx, ny, nz = ncells
     C = nx * ny * nz
-    k13 = len(HALF_OFFSETS)
-    g = plane[:C].reshape(nx, ny, nz, cap)
-    out = jnp.concatenate(
+    g = plane.reshape(nx, ny, nz, cap)
+    return jnp.concatenate(
         [
             jnp.roll(g, (-di, -dj, -dk), (0, 1, 2)).reshape(C, cap)
             for (di, dj, dk) in HALF_OFFSETS
         ],
         axis=1,
     )
-    if Cg > C:
-        out = jnp.concatenate(
-            [out, jnp.full((Cg - C, k13 * cap), fill, plane.dtype)], 0
-        )
-    return out
-
-
-def _halo_wrap(g):
-    """(nx, ny, nz, ...) -> (nx+2, ny+2, nz+2, ...) with periodic wrap: a
-    one-cell halo on each face.  Neighbor views become STATIC SLICES of the
-    extended array, so a 13-offset stencil build is one fused
-    slice+reshape+concat pass instead of 13 three-axis rolls (each of
-    which XLA lowers to per-axis copies)."""
-    for ax in range(3):
-        lo = jax.lax.slice_in_dim(g, g.shape[ax] - 1, g.shape[ax], axis=ax)
-        hi = jax.lax.slice_in_dim(g, 0, 1, axis=ax)
-        g = jnp.concatenate([lo, g, hi], axis=ax)
-    return g
-
-
-def _half_slices(E, ncells, cap):
-    """[(C, cap) views of each HALF_OFFSETS neighbor] from a halo-extended
-    (nx+2, ny+2, nz+2, cap) array."""
-    from ..ops.cellforce_pallas import HALF_OFFSETS
-
-    nx, ny, nz = ncells
-    C = nx * ny * nz
-    return [
-        E[1 + di : 1 + di + nx, 1 + dj : 1 + dj + ny, 1 + dk : 1 + dk + nz]
-        .reshape(C, cap)
-        for (di, dj, dk) in HALF_OFFSETS
-    ]
-
-
-def _planar_coord_views(xs, ncells, cap, Cg):
-    """Planar coordinate inputs for the Newton kernels: xyz-major local
-    coords (Cg, 3cap) and neighbor coords (Cg, 3*13cap) in HALF_OFFSETS
-    order.  Built from one halo-extended array per step — the 13 stencil
-    views are static slices that fuse into the output concat, so no
-    (Cg, 13cap, 3) intermediates are ever materialized."""
-    nx, ny, nz = ncells
-    C = nx * ny * nz
-    k13 = 13
-    g = xs[:C].reshape(nx, ny, nz, cap, 3)
-    E = _halo_wrap(g)
-    cols = []
-    for c in range(3):
-        cols += _half_slices(E[..., c], ncells, cap)
-    xn_f = jnp.concatenate(cols, axis=1)
-    xc_f = jnp.concatenate([xs[..., 0], xs[..., 1], xs[..., 2]], axis=1)
-    if Cg > C:
-        xn_f = jnp.concatenate(
-            [xn_f, jnp.zeros((Cg - C, 3 * k13 * cap), xs.dtype)], 0
-        )
-    return xc_f, xn_f
-
-
-def _planar_half_views(xs, mc, ncells, cap, Cg):
-    """Coordinate views plus the rolled candidate mask (Cg, 13cap).  The
-    mask only changes at rebuilds/rebins — per-step callers pass the
-    state-cached ``mnf`` instead (see CellPairState.mnf)."""
-    xc_f, xn_f = _planar_coord_views(xs, ncells, cap, Cg)
-    return xc_f, xn_f, _half_concat(mc, ncells, cap, Cg)
-
-
-def newton_lattice_force(
-    xs, mc_rows, mc_cand, ncells, cap, box, lj, table, do_energy=None,
-    ts=None, type_pair=None, mn_f=None, tn_f=None, rescredit=False,
-    row_box=None,
-):
-    """Half-stencil Newton force pass over an (nx, ny, nz) slot lattice.
-
-    xs (Cg, cap, 3) with Cg = C rounded up to the kernel's program size;
-    ``mc_rows`` masks which slots act as LOCAL rows (enumerate pairs /
-    receive row forces), ``mc_cand`` which slots are visible as stencil
-    CANDIDATES.  They differ only in sharded slab decomposition, where a
-    device's halo columns are candidates but not rows (their pairs are
-    enumerated by the owning device).  Returns (energy, f_rows (Cg, cap, 3)).
-
-    ``table``: ChebTable (spectral lookup) or HermiteTable (exact interp).
-    ``ts`` (Cg, cap) slot types + ``type_pair`` restrict the CV to an rdf
-    type pair.  Planar layout throughout: rolled neighbor views concatenate
-    straight into the kernel's xyz-major input and reverse-force credits
-    apply per component (strided layout copies run ~10x below HBM peak and
-    would otherwise rival the kernel time).  ``mn_f``/``tn_f``: optional
-    precomputed rolled mask/type planes (state-cached between rebuilds;
-    built here when absent).
-
-    ``rescredit=True`` runs the in-kernel credit-accumulation kernel
-    (``cell_forces_pallas_newton_rescredit``) instead of the planar
-    kernel + host-side credit rolls: no 13 x cap credit outputs, no 39
-    application rolls — the same win that made it the single-device
-    default (round-3 win, docs/perf.md).  Identical math, f32 reduction
-    order differs (in-kernel sequential-grid RMW vs rolled adds).  It is
-    exactly as correct on a halo sub-window as the roll version: credits
-    from owned rows move at most one cell and land inside the halo ring,
-    so neither version's lattice wraparound is ever exercised from a row
-    (the sharded ``lowlow`` passes mask halo cells out of ``mc_rows``).
-    """
-    from ..ops.cellforce_pallas import (
-        HALF_OFFSETS,
-        cell_forces_pallas_newton_planar,
-        cell_forces_pallas_newton_rescredit,
-    )
-
-    nx, ny, nz = ncells
-    C = nx * ny * nz
-    Cg = xs.shape[0]
-    k13 = len(HALF_OFFSETS)
-    xc_f, xn_f = _planar_coord_views(xs, ncells, cap, Cg)
-    if mn_f is None:
-        mn_f = _half_concat(mc_cand, ncells, cap, Cg)
-    if ts is not None and type_pair is not None:
-        types = (ts, tn_f if tn_f is not None else _half_concat(ts, ncells, cap, Cg))
-    else:
-        types = None
-
-    if rescredit:
-        if row_box is not None:
-            # Rows over the OWNED sub-box only (static origin/dims; a
-            # ragged device's surplus column stays masked via mc_rows):
-            # the kernel stops executing row programs for halo cells,
-            # which contribute nothing — the halo ring's remaining cost
-            # is its (free) presence in the candidate windows.
-            from ..ops.cellforce_pallas import CELLS_PER_PROGRAM
-
-            (ox, oy, oz), (rx_d, ry_d, rz_d) = row_box
-            R = rx_d * ry_d * rz_d
-            Rg = -(-R // CELLS_PER_PROGRAM) * CELLS_PER_PROGRAM
-
-            def rows_of(a):
-                w = a.shape[1]
-                g = a[:C].reshape(nx, ny, nz, w)[
-                    ox : ox + rx_d, oy : oy + ry_d, oz : oz + rz_d
-                ].reshape(R, w)
-                if Rg > R:
-                    g = jnp.concatenate(
-                        [g, jnp.zeros((Rg - R, w), a.dtype)], 0
-                    )
-                return g
-
-            xc_r, xn_r = rows_of(xc_f), rows_of(xn_f)
-            mc_r, mn_r = rows_of(mc_rows), rows_of(mn_f)
-            types_r = (
-                None
-                if types is None
-                else (rows_of(types[0]), rows_of(types[1]))
-            )
-        else:
-            xc_r, xn_r, mc_r, mn_r, types_r = xc_f, xn_f, mc_rows, mn_f, types
-
-        def call_rc(energy):
-            return cell_forces_pallas_newton_rescredit(
-                xc_r, xn_r, mc_r, mn_r, table,
-                cap=cap, ncells=ncells, box=box,
-                lj_eps=lj.epsilon, lj_sig=lj.sigma, lj_rcut=lj.rcut,
-                energy=energy, types=types_r, type_pair=type_pair,
-                row_box=row_box, out_cells=None if row_box is None else Cg,
-            )
-
-        if do_energy is None:
-            fx, fy, fz, eb = call_rc(True)
-        elif isinstance(do_energy, bool):
-            fx, fy, fz, eb = call_rc(do_energy)
-        else:
-            fx, fy, fz, eb = jax.lax.cond(
-                do_energy, lambda _: call_rc(True), lambda _: call_rc(False),
-                None,
-            )
-        return jnp.sum(eb), jnp.stack([fx, fy, fz], axis=-1)
-
-    def call(energy):
-        return cell_forces_pallas_newton_planar(
-            xc_f, xn_f, mc_rows, mn_f, table,
-            cap=cap, box=box,
-            lj_eps=lj.epsilon, lj_sig=lj.sigma, lj_rcut=lj.rcut,
-            energy=energy, types=types, type_pair=type_pair,
-        )
-
-    if do_energy is None:
-        fx, fy, fz, fnx, fny, fnz, eb = call(True)
-    elif isinstance(do_energy, bool):
-        # static stride phase (pattern_segment): branch resolved at trace time
-        fx, fy, fz, fnx, fny, fnz, eb = call(do_energy)
-    else:
-        # energy_stride > 1: the value Clenshaw chain (~40% of the kernel
-        # FLOPs) runs only on energy steps; forces are identical either way
-        fx, fy, fz, fnx, fny, fnz, eb = jax.lax.cond(
-            do_energy, lambda _: call(True), lambda _: call(False), None
-        )
-    # Newton credit: the kernel saw each cross-cell pair once from the low
-    # side; subtract its column sums from the neighbor cell (fn[c, k]
-    # belongs to cell c + HALF_OFFSETS[k], which the lattice roll by
-    # +offset delivers), per component
-    outs = []
-    for f1, n1 in ((fx, fnx), (fy, fny), (fz, fnz)):
-        fgc = f1[:C].reshape(nx, ny, nz, cap)
-        ngc = n1[:C].reshape(nx, ny, nz, k13, cap)
-        for k, (di, dj, dk) in enumerate(HALF_OFFSETS):
-            fgc = fgc - jnp.roll(ngc[:, :, :, k], (di, dj, dk), (0, 1, 2))
-        outs.append(fgc.reshape(C, cap))
-    f_rows = jnp.stack(outs, axis=-1)
-    if Cg > C:
-        f_rows = jnp.concatenate(
-            [f_rows, jnp.zeros((Cg - C, cap, 3), xs.dtype)], 0
-        )
-    return jnp.sum(eb), f_rows
 
 
 def atom_positions(spec: CellSpec, state: CellPairState) -> jax.Array:
@@ -459,37 +130,20 @@ def atom_positions(spec: CellSpec, state: CellPairState) -> jax.Array:
     )
 
 
-def cell_diag(spec: CellSpec, state: CellPairState, kernel_caps=(16, 24)):
-    """Host-side occupancy telemetry (one device fetch of ``state.aid``).
-
-    Returns a dict: per-cell occupancy stats, the tail population
-    ``sum_cells max(0, occ - K)`` for each K in ``kernel_caps`` (the cost
-    driver of the reduced-cap kernel's overflow list — size overflow_cap
-    off this), and the state's carried tail/overflow flags.  Use it to
-    SIZE kernel_cap/overflow_cap from measured distributions instead of
-    Poisson guesses (docs/perf.md "tail occupancy")."""
+def cell_diag(spec: CellSpec, state: CellPairState):
+    """Host-side occupancy telemetry (one device fetch of ``state.aid``):
+    per-cell occupancy stats and the cell-overflow flag."""
     aid2 = np.asarray(jax.device_get(state.aid)).reshape(-1, spec.cap)
     occ = (aid2 < spec.n_atoms).sum(1)
-    occ_real = occ[: spec.n_cells]
-    d = {
+    return {
         "n_cells": spec.n_cells,
         "cap": spec.cap,
-        "occ_max": int(occ_real.max()),
-        "occ_mean": float(occ_real.mean()),
-        "occ_p99": float(np.percentile(occ_real, 99)),
-        "occ_hist": np.bincount(occ_real, minlength=spec.cap + 1).tolist(),
-        "tail_population": {
-            int(k): int(np.maximum(0, occ_real - k).sum())
-            for k in kernel_caps
-        },
+        "occ_max": int(occ.max()),
+        "occ_mean": float(occ.mean()),
+        "occ_p99": float(np.percentile(occ, 99)),
+        "occ_hist": np.bincount(occ, minlength=spec.cap + 1).tolist(),
         "cell_overflow": bool(state.table_overflow),
     }
-    if state.tail_count is not None:
-        d["state_tail_count"] = int(state.tail_count)
-        d["state_tail_ovf"] = bool(state.tail_ovf)
-        d["state_tail_fallbacks"] = int(state.tail_fallbacks)
-        d["overflow_cap"] = int(state.ovl.shape[0])
-    return d
 
 
 def _local_planar_gate(loc_cols: int, nx: int) -> bool:
@@ -510,9 +164,8 @@ def _extract_first_m(acc, rvals, uvals, m_per_row: int, dtype):
 
     Rank one-hot select: within-row prefix counts make the m-th accepted
     column the unique accepted column with rank m+1, so each output column
-    is a masked row-sum (~7 VPU ops per matrix element per m) — replaces a
-    sequential argmax/take_along/scatter chain over the work matrix that
-    XLA schedules ~10x slower.  ``rvals`` may hold inf at masked-out
+    is a masked row-sum — replaces a sequential argmax/take_along/scatter
+    chain over the work matrix.  ``rvals`` may hold inf at masked-out
     columns; selection uses where-masks (never multiplication) so no
     0*inf NaNs.  Rows with fewer than m accepts get valid=False there
     (the values at invalid slots are never consumed — the caller's
@@ -534,51 +187,15 @@ def _extract_first_m(acc, rvals, uvals, m_per_row: int, dtype):
     return hills_rows, runif_rows, valid_rows
 
 
-def init_cell_state(
-    spec: CellSpec, core: PairEDMState, with_ids: bool = True, types=None,
-    kernel_cap=None, overflow_cap: int = 128,
-) -> CellPairState:
-    """``with_ids=False`` builds a light state without the (Cg, 27cap)
-    stencil id masks — they are only consumed by ``use_pallas="full"``;
-    the default Newton paths never read them and skipping them cuts the
-    rebuild's largest mask build.  The step follows the state's structure
-    (light in -> light rebuilds).  ``types`` (N,) caches the per-slot type
-    plane for type-filtered Pallas runs (pass the same array to
-    make_cell_step).  ``kernel_cap``/``overflow_cap`` cache the reduced-cap
-    candidate mask + tail-slot list for reduced-cap kernel runs (pass the
-    same values to make_cell_step); a tail population beyond
-    ``overflow_cap`` sets ``tail_ovf`` and the step runs the FULL-CAP
-    kernel for that rebuild period (never-drop fallback — e.g. a cubic
-    initial lattice commensurate with the cell grid can start many cells
-    above kernel_cap; forces stay exact, the period is just slower).
-    ``table_overflow`` is strictly CELL-cap exhaustion (atoms dropped from
-    the table — catastrophic, sticky)."""
-    Cg = _padded_cells(spec)
-    sten_g = _stencil_padded(spec, Cg)
+def init_cell_state(spec: CellSpec, core: PairEDMState) -> CellPairState:
+    """Bin ``core``'s atoms into the slot table.  ``table_overflow`` flags
+    cell-cap exhaustion (atoms dropped from the table — wrong physics,
+    sticky)."""
     table = build_table(spec, core.x)
-    n = spec.n_atoms
-    aid_g = jnp.concatenate(
-        [table.aid, jnp.full((Cg * spec.cap - spec.n_slots,), n, jnp.int32)]
-    )
-    xs, vs, fs, mc, mn, sid, nid, ts, mnf, tnf, mkf, ovl, tail_count = (
-        _slots_from_atoms(
-            spec, Cg, sten_g, core.x, core.v, core.f, aid_g,
-            with_ids=with_ids, types_arr=types,
-            kernel_cap=kernel_cap, overflow_cap=overflow_cap,
-        )
-    )
-    if kernel_cap is not None:
-        tail_ovf = tail_count > overflow_cap
-        tail_fallbacks = tail_ovf.astype(jnp.int32)
-    else:
-        tail_ovf = tail_fallbacks = None
+    xs, vs, fs, mc, mnf = _slots_from_atoms(spec, core.x, core.v, core.f, table.aid)
     return CellPairState(
-        core=core, aid=aid_g, xs=xs, vs=vs, fs=fs,
-        mc=mc, mn=mn, sid=sid, nid=nid,
-        table_overflow=table.overflow,
-        ts=ts, mnf=mnf, tnf=tnf, mkf=mkf, ovl=ovl,
-        tail_count=tail_count, tail_ovf=tail_ovf,
-        tail_fallbacks=tail_fallbacks,
+        core=core, aid=table.aid, xs=xs, vs=vs, fs=fs, mc=mc,
+        table_overflow=table.overflow, mnf=mnf,
     )
 
 
@@ -594,10 +211,9 @@ def make_cell_step(
     row_cap: int = 2048,
     m_per_row: int = 16,
     axis_name: Optional[str] = None,
-    cheb_deg: int = 64,
     types=None,
     type_pair=None,
-    use_pallas: bool = False,
+    force_impl: str = "xla",
     collect_records: bool = False,
     energy_stride: int = 1,
     slab_axis: Optional[str] = None,
@@ -611,23 +227,23 @@ def make_cell_step(
     static_do_hills: Optional[bool] = None,
     static_do_energy: Optional[bool] = None,
     static_do_rebuild: Optional[bool] = None,
-    kernel_cap: Optional[int] = None,
-    overflow_cap: int = 128,
 ):
-    """``slab_axis``/``slab_ndev``: run the force pass slab-sharded under
-    ``shard_map`` over that mesh axis — each device evaluates the Newton
-    kernel on its contiguous range of x-columns plus one halo column per
-    side and the per-slot forces combine with one psum (the TPU analog of
-    the reference's spatial domain decomposition, edm_bias.cpp:98-222,
-    with the hill exchange collapsed into the replicated-state psum).
-    With ``slab_collect`` (default) the hill-collection passes are ALSO
-    slab-sharded — each device samples candidates only over its own
-    x-columns and the per-device hill lists are all_gathered in device
-    order, which replays bitwise in the single-device deposit order (see
-    collect_hills_half) — leaving only integration, deposition and
-    rebuilds as the replicated Amdahl terms.  Type-filtered runs keep the
-    replicated 27-stencil collection.  Requires use_pallas (the Newton
-    kernel path).
+    """``force_impl``: "xla" (plain JAX) or "triton" (the Pallas Triton
+    kernel, GPU only) — see ops/cellforce.lattice_force.
+
+    ``slab_axis``/``slab_ndev``: run the force pass slab-sharded under
+    ``shard_map`` over that mesh axis — each device evaluates the rows of
+    its contiguous range of x-columns against a window of those columns
+    plus one halo column per side, and the per-slot forces combine with
+    one psum (the analog of the reference's spatial domain decomposition,
+    edm_bias.cpp:98-222, with the hill exchange collapsed into the
+    replicated-state psum).  With ``slab_collect`` (default) the
+    hill-collection passes are ALSO slab-sharded — each device samples
+    candidates only over its own x-columns and the per-device hill lists
+    are all_gathered in device order, which replays bitwise in the
+    single-device deposit order (see collect_hills_half) — leaving only
+    integration, deposition and rebuilds as the replicated Amdahl terms.
+    Type-filtered runs keep the replicated 27-stencil collection.
 
     ``brick_axes``/``brick_ndev``: BRICK decomposition over a (px, py) or
     (px, py, pz) device grid — each device owns a contiguous x-range x
@@ -637,102 +253,39 @@ def make_cell_step(
     too: per-device passes over owned cells, merged back to the EXACT
     single-device deposit order by a global row-key sort (see
     collect_hills_half).  Mutually exclusive with ``slab_axis``; same
-    replicated-state psum contract (maps the reference's 3-D MPI
-    subdivision, edm_bias.cpp:98-222, onto the ICI torus: (px, py) for
-    v5e/v6 2-D tori, (px, py, pz) for v4/v5p 3-D tori).  A dim with
-    p_d == 1 is unsharded (no halo along it).
+    replicated-state psum contract (the reference's 3-D MPI subdivision,
+    edm_bias.cpp:98-222).  A dim with p_d == 1 is unsharded (no halo
+    along it).
 
     ``shard_floor`` (default True, slab/brick modes): decompose the
     replicated Amdahl-floor terms too — (a) the BAOAB pre-force phase
     (B-A-O-A: velocity/position updates + the thermostat noise draw) runs
     per device over owned columns only and the halves combine with one
     fused (x, v) psum; (b) the hill pass-2/extraction tiles shrink to
-    ``row_cap_local`` rows (default row_cap/n_dev, min 64, rounded to the
-    sublane tile).  Bitwise-neutral by construction: the noise is drawn
-    by global slot row with a counter-hash Box-Muller generator
+    ``row_cap_local`` rows (default row_cap/n_dev, min 64, rounded to 8).
+    Bitwise-neutral by construction: the noise is drawn by global slot
+    row with a counter-hash Box-Muller generator
     (ops/hashrng.normal_rows_cols) — a sliced row range draws the exact
     values the replicated draw produces — and ALL cells hosts (sharded
     or not) use this noise stream, so sharded trajectories match the
     single-device host bit-for-bit at any kT.  Deposition and rebuilds
-    remain the replicated floor (see docs/perf.md).
+    remain the replicated floor.
 
     ``static_do_hills`` / ``static_do_energy`` / ``static_do_rebuild``:
-    resolve the corresponding stride branch at TRACE time — the dynamic
-    ``lax.cond``'s pass-through branch copies every carried array it
-    returns unchanged (the rebuild cond's ``keep`` alone passes ~25 MB of
-    slot planes per step at 100k atoms).  Hosts with aligned strides build
-    one step per phase of the stride cycle (e.g. hills+energy at index 0,
+    resolve the corresponding stride branch at TRACE time instead of a
+    dynamic ``lax.cond``, whose pass-through branch may copy every carried
+    array it returns unchanged.  Hosts with aligned strides build one
+    step per phase of the stride cycle (e.g. hills+energy at index 0,
     plain at 1..8, rebuild at 9 for strides of 10) and drive them with
     ``driver.pattern_segment``; the caller owns phase alignment (a
     ``static_do_hills=True`` step deposits regardless of ``state.step``).
     ``None`` keeps the dynamic cond; the static and dynamic paths match
     to XLA loop-fusion rounding (integer leaves exactly — same RNG
-    stream; see tests/test_strided.py).
-
-    ``kernel_cap``/``overflow_cap``: run the Newton force kernel at a
-    REDUCED row/candidate cap (slots 0..kernel_cap-1 only) and evaluate
-    every pair with a member in a tail slot (>= kernel_cap) in one dense
-    Pallas side pass over the compacted tail-atom list
-    (ops/cellforce_pallas.overflow_forces_pallas).  The kernel's pair-slot
-    volume scales ~kernel_cap^2 while mean occupancy is far below ``cap``
-    (cap is mean + 4 sigma; docs/perf.md "cap slack"), so kernel_cap=24 at
-    cap 32 cuts ~36% of the executed slots for a ~0.3 ms dense sweep.
-    Storage, residency, the RNG streams, hill collection and deposit order
-    are all UNCHANGED (hills keep the full-cap planes) — only the force
-    pair sum is split, so forces match the full-cap kernel to f32
-    reduction-order rounding.  Requires the default Newton path
-    (use_pallas=True, untyped) and a state built with
-    ``init_cell_state(..., kernel_cap=..., overflow_cap=...)``.  Composes
-    with the slab/brick decompositions (the reference's subdivision
-    composes with everything, edm_bias.cpp:98-222): each device runs the
-    reduced sub-lattice kernel over its owned columns/brick, and the
-    dense overflow sweep is ownership-masked — device d's partners are
-    the low slots of its OWNED cells and its tail-tail rows the tail
-    atoms whose cell it owns — so the step's one force psum counts every
-    tail pair exactly once.
-
-    NEVER-DROP fallback: a tail population beyond ``overflow_cap`` (e.g.
-    the initial lattice commensurate with the cell grid — the r04 bench
-    started 64 cells at 27 atoms, tail 192 > 128) sets ``tail_ovf`` and
-    the force pass runs the FULL-CAP kernel for that rebuild period —
-    bitwise the kernel_cap=None step — instead of dropping tail pairs;
-    ``tail_fallbacks`` counts such periods.  An incremental-rebin plan
-    that would push the tail past ``overflow_cap`` falls back to the full
-    packing rebuild (which minimizes the tail) first.  The reference
-    evaluates every neighbor pair unconditionally
-    (fix_edm_pair.cpp:177-227); this keeps that contract under any
-    transient."""
-    if kernel_cap is not None:
-        if use_pallas is not True:
-            raise ValueError("kernel_cap requires the default Newton "
-                             "kernel path (use_pallas=True)")
-        if types is not None and type_pair is not None:
-            raise ValueError("kernel_cap does not support type-filtered "
-                             "runs")
-        if kernel_cap % 8 or not 0 < kernel_cap < spec.cap:
-            raise ValueError("kernel_cap must be a positive multiple of 8 "
-                             "below spec.cap")
-        if overflow_cap % 8:
-            raise ValueError("overflow_cap must be a multiple of 8")
-        # the dense overflow pass selects pairs by r-mask + min-image over
-        # the WHOLE box while the stencil kernels see 27-stencil pairs
-        # only; they agree on the pair set iff every interaction range
-        # fits one cell edge (the stencil-capture precondition) — except
-        # along dims of exactly 3 cells, where the stencil IS global
-        _rng = max(float(lj.rcut), float(params.cfg.box_high[0]))
-        for _d in range(3):
-            if spec.ncells[_d] > 3 and spec.edge[_d] + 1e-9 < _rng:
-                raise ValueError(
-                    f"kernel_cap: cell edge {spec.edge[_d]:.4f} along dim "
-                    f"{_d} is below the interaction range {_rng:.4f} "
-                    "(max of lj.rcut and the bias CV domain) — the dense "
-                    "overflow pass would see pairs the stencil kernel "
-                    "misses; build the CellSpec with cutoff >= that range"
-                )
+    stream; see tests/test_strided.py)."""
     if brick_axes is not None and slab_axis is not None:
         raise ValueError("brick_axes and slab_axis are mutually exclusive")
-    if brick_axes is not None and not use_pallas:
-        raise ValueError("brick mode requires use_pallas")
+    if force_impl not in ("xla", "triton"):
+        raise ValueError(f"unknown force_impl {force_impl!r}")
     if brick_axes is not None:
         if len(brick_axes) not in (2, 3) or len(brick_axes) != len(brick_ndev):
             raise ValueError("brick_axes/brick_ndev must be 2-D or 3-D")
@@ -760,7 +313,6 @@ def make_cell_step(
     C = spec.n_cells
     cap = spec.cap
     n = spec.n_atoms
-    Cg = _padded_cells(spec)
     # incremental-rebin mover buffer: sized for ~3% boundary crossers per
     # rebuild (typical is 1-2% at stride 10); infeasible plans fall back to
     # the full argsort rebuild inside the step, so this is a speed knob —
@@ -769,7 +321,6 @@ def make_cell_step(
     if mover_cap is None:
         mover_cap = max(256, -(-n // 32))
     box_arr = jnp.asarray(spec.box)
-    sten_g = _stencil_padded(spec, Cg)
     n_chunks = -(-C // cell_chunk)
     Cp = n_chunks * cell_chunk
     bmax_cv = params.cfg.box_high[0]
@@ -821,84 +372,42 @@ def make_cell_step(
                 max(64, (int(row_cap * frac) + 7) // 8 * 8),
             )
 
-    # type-filtered Pallas runs read the cached per-slot type plane
-    # (init_cell_state(..., types=...)); checked at trace time below
-
-    def _xs_padded(xs, aid2, dtype):
-        """(Cp, cap, 3) view for the XLA chunked paths (Cp vs Cg padding)."""
-        if Cp <= Cg:
-            return xs[:Cp], aid2[:Cp]
-        pad = Cp - Cg
-        return (
-            jnp.concatenate([xs, jnp.zeros((pad, cap, 3), dtype)], 0),
-            jnp.concatenate([aid2, jnp.full((pad, cap), n, jnp.int32)], 0),
+    def pad_cells(a, fill):
+        """(C, ...) -> (Cp, ...) so the chunked collection's slices stay
+        in range."""
+        if Cp == C:
+            return a
+        return jnp.concatenate(
+            [a, jnp.full((Cp - C,) + a.shape[1:], fill, a.dtype)], 0
         )
 
-    def chunk_pairs(xs3, aid2, ci, dtype, need_disp=True, squared=False):
-        """Dense pair tile for cells [ci*chunk, ...): returns (disp, r, valid,
-        local aid (B,cap), local validity).  need_disp=False skips the
-        displacement materialization (accept passes need distances only);
-        squared=True returns r^2 (invalid = inf) without the sqrt."""
-        c0 = ci * cell_chunk
-        xc = jax.lax.dynamic_slice_in_dim(xs3, c0, cell_chunk)  # (B, cap, 3)
-        ac = jax.lax.dynamic_slice_in_dim(aid2, c0, cell_chunk)  # (B, cap)
-        sten_p = sten_g if Cp <= Cg else jnp.concatenate(
-            [sten_g, jnp.zeros((Cp - Cg, 27), jnp.int32)], 0
-        )
-        nbr = jax.lax.dynamic_slice_in_dim(sten_p, c0, cell_chunk)  # (B, 27)
-        xn = xs3[jnp.clip(nbr, 0, xs3.shape[0] - 1)]  # (B, 27, cap, 3)
-        an = aid2[jnp.clip(nbr, 0, aid2.shape[0] - 1)]
-        bsz = cell_chunk
-        disp = xc[:, :, None, :] - xn.reshape(bsz, 1, 27 * cap, 3)
+    def slot_types(aid):
+        """Atom types of the slots in ``aid`` (0 = empty slot)."""
+        return jnp.where(aid < n, types_arr[jnp.clip(aid, 0, n - 1)], 0)
+
+    def chunk_pairs(xs3, aid2, xn3, an2, ci, dtype):
+        """Squared-distance pair tile for cells [ci*chunk, ...) over their
+        27 stencil cells (``xn3``/``an2``: the cells' stencil views):
+        returns (r^2 (B, cap, 27cap) with invalid = inf, candidate-type
+        mask or None)."""
+        sl = lambda a: jax.lax.dynamic_slice_in_dim(a, ci * cell_chunk, cell_chunk)
+        xc, ac, xn, an = sl(xs3), sl(aid2), sl(xn3), sl(an2)
+        disp = xc[:, :, None, :] - xn[:, None, :, :]
         b = box_arr.astype(dtype)
         disp = disp - jnp.round(disp / b) * b
         r2 = jnp.sum(disp * disp, axis=-1)  # (B, cap, 27cap)
-        if not need_disp:
-            disp = None
-        anf = an.reshape(bsz, 1, 27 * cap)
+        anf = an[:, None, :]
         valid = (ac[:, :, None] < n) & (anf < n) & (ac[:, :, None] != anf)
         rm = jnp.where(valid, r2, jnp.inf)
-        r = rm if squared else jnp.sqrt(rm)
         if types_arr is None:
             cv_ok = None
         else:
-            tslots = jnp.where(
-                aid2.reshape(-1) < n,
-                types_arr[jnp.clip(aid2.reshape(-1), 0, n - 1)],
-                0,
-            ).reshape(aid2.shape)
-            tc = jax.lax.dynamic_slice_in_dim(tslots, c0, cell_chunk)
-            tn = tslots[jnp.clip(nbr, 0, aid2.shape[0] - 1)].reshape(
-                cell_chunk, 1, 27 * cap
-            )
+            tc, tn = slot_types(ac)[:, :, None], slot_types(anf)
             ti, tj = tpair
-            cv_ok = ((tc[:, :, None] == ti) & (tn == tj)) | (
-                (tc[:, :, None] == tj) & (tn == ti)
-            )
-        return disp, r, valid, ac, cv_ok
+            cv_ok = ((tc == ti) & (tn == tj)) | ((tc == tj) & (tn == ti))
+        return rm, cv_ok
 
     nx, ny, nz = spec.ncells
-
-    def _stencil_neighbors(xs):
-        """(Cg, cap, 3) -> (Cg, 27cap, 3) stencil coordinates via 27 rolls.
-
-        The stencil is translation-regular, so the neighbor gather is 27
-        contiguous rolls of the (nx, ny, nz) cell grid — XLA copies at HBM
-        bandwidth instead of a row gather (measured ~10x faster at 10k
-        atoms).  Roll order matches CellSpec.stencil()'s (dx, dy, dz) loop,
-        which the cached mn/nid masks were built with."""
-        g = xs[:C].reshape(nx, ny, nz, cap, 3)
-        outs = []
-        for di in (-1, 0, 1):
-            for dj in (-1, 0, 1):
-                for dk in (-1, 0, 1):
-                    outs.append(jnp.roll(g, (-di, -dj, -dk), axis=(0, 1, 2)))
-        xn = jnp.stack(outs, axis=3).reshape(C, 27 * cap, 3)
-        if Cg > C:
-            xn = jnp.concatenate(
-                [xn, jnp.zeros((Cg - C, 27 * cap, 3), xs.dtype)], 0
-            )
-        return xn
 
     # balanced slab partition: the first (nx % n_dev) devices own q+1
     # x-columns, the rest q — per-device column counts differ by <= 1
@@ -908,613 +417,131 @@ def make_cell_step(
     nxd_slab = -(-nx // slab_ndev) if slab_axis is not None else None
 
     def force_fn_for(state: CellPairState, do_energy=None):
-        def _table(state):
-            """Kernel lookup table: the carried ChebTable, or the exact
-            Hermite table derived from the live grid (pair_lookup='interp'
-            — rebuilt per step; G x 4 stacking is trace-time trivial)."""
-            if state.core.cheb is not None:
-                return state.core.cheb
-            from ..ops.cellforce_pallas import hermite_pair_table
+        # pair-bias table: the carried ChebTable, or the live grid itself
+        # (exact lookup, pair_lookup='interp')
+        table = (
+            state.core.cheb
+            if state.core.cheb is not None
+            else state.core.bias.bias
+        )
+        if types_arr is None:
+            ts = None
+        else:
+            # per-slot types (0 = empty), refreshed from the slot table
+            ts = jnp.where(
+                state.aid < n, types_arr[jnp.clip(state.aid, 0, n - 1)], 0
+            ).reshape(C, cap).astype(state.xs.dtype)
 
-            return hermite_pair_table(state.core.bias.bias)
+        def lf(xs_w, rows, cand, ncells_w, ts_w, row_box=None):
+            return lattice_force(
+                xs_w, rows, cand, ncells_w, spec.box, lj, table, do_energy,
+                ts=ts_w, type_pair=tpair, row_box=row_box, impl=force_impl,
+                cell_chunk=cell_chunk,
+            )
 
-        def _kernel_types(state):
-            if types_arr is None:
-                return None, None
-            if state.ts is None:
-                raise ValueError(
-                    "type-filtered Pallas runs need the cached slot types: "
-                    "build the state with init_cell_state(..., types=types)"
-                )
-            return state.ts, tpair
-
-        def _check_kcap_state():
-            if state.mkf is None or state.ovl is None:
-                raise ValueError(
-                    "kernel_cap runs need the cached tail list: build the "
-                    "state with init_cell_state(..., kernel_cap=..., "
-                    "overflow_cap=...)"
-                )
-            if state.mkf.shape[1] != 13 * kernel_cap:
-                raise ValueError(
-                    f"state was built with kernel_cap="
-                    f"{state.mkf.shape[1] // 13} but the step expects "
-                    f"kernel_cap={kernel_cap}; pass the same value to "
-                    "init_cell_state and make_cell_step"
-                )
-            if state.ovl.shape[0] != overflow_cap:
-                raise ValueError(
-                    f"state was built with overflow_cap="
-                    f"{state.ovl.shape[0]} but the step expects "
-                    f"overflow_cap={overflow_cap}; pass the same value to "
-                    "init_cell_state and make_cell_step"
-                )
-
-        def _owned_cell_mask(dtype):
-            """(Cg,) 1.0 at cells this device OWNS (disjoint across the
-            mesh).  The overflow sweep masks partner low slots and
-            tail-tail rows by it, so the force psum counts each tail pair
-            exactly once — the owner of the low slot (tail x low) or of
-            the row atom's cell (tail x tail)."""
+        def owned_rows(xs, starts, widths, parts):
+            """Full-lattice pass with rows restricted to this device's
+            cells — for lattices too small to slice a window with halo
+            (test-scale only; correct, no compute saving)."""
             cidx = jnp.arange(C, dtype=jnp.int32)
+            cco = (cidx // (ny * nz), (cidx // nz) % ny, cidx % nz)
+            mine = jnp.ones((C,), bool)
+            for d in range(3):
+                if parts[d] > 1:
+                    mine = (
+                        mine
+                        & (cco[d] >= starts[d])
+                        & (cco[d] < starts[d] + widths[d])
+                    )
+            return lf(
+                xs, state.mc * mine.astype(xs.dtype)[:, None], state.mc,
+                spec.ncells, ts,
+            )
+
+        def windowed(xs, starts, widths, wmax, parts, axes):
+            """Force pass of this device's owned cells: the rows of its
+            brick (or slab) inside a window of the brick plus a one-cell
+            halo along every sharded dim, then one psum over ``axes``.
+            The window's own periodic wrap joins cells >= 2 apart
+            globally (or is the real wrap when it spans the dim), so
+            wrapped pairs are either correct or beyond the cutoff."""
+            ncd = (nx, ny, nz)
+            halo = [1 if parts[d] > 1 else 0 for d in range(3)]
+            sliceable = all(
+                parts[d] == 1 or wmax[d] + 2 <= ncd[d] for d in range(3)
+            )
+            if not sliceable:
+                e, f = owned_rows(xs, starts, widths, parts)
+                return jax.lax.psum(e, axes), jax.lax.psum(f, axes)
+            wdims = tuple(
+                wmax[d] + 2 if halo[d] else ncd[d] for d in range(3)
+            )
+            shifts = tuple(halo[d] - starts[d] for d in range(3))
+
+            def window(a):
+                g = a.reshape((nx, ny, nz) + a.shape[1:])
+                return jnp.roll(g, shifts, axis=(0, 1, 2))[
+                    : wdims[0], : wdims[1], : wdims[2]
+                ]
+
+            Cw = wdims[0] * wdims[1] * wdims[2]
+            subm = window(state.mc)
+            # rows: owned cells only (the halo ring and a ragged device's
+            # surplus cells are candidates, never rows)
+            ok1 = [
+                (jnp.arange(wdims[d]) >= halo[d])
+                & (jnp.arange(wdims[d]) < halo[d] + widths[d])
+                for d in range(3)
+            ]
+            row_ok = (
+                ok1[0][:, None, None]
+                & ok1[1][None, :, None]
+                & ok1[2][None, None, :]
+            )
+            rows = subm * row_ok[..., None].astype(subm.dtype)
+            e, f_sub = lf(
+                window(xs).reshape(Cw, cap, 3), rows.reshape(Cw, cap),
+                subm.reshape(Cw, cap), wdims,
+                None if ts is None else window(ts).reshape(Cw, cap),
+                row_box=(
+                    tuple(halo),
+                    tuple(wmax[d] if halo[d] else ncd[d] for d in range(3)),
+                ),
+            )
+            fsg = f_sub.reshape(wdims + (cap, 3))
+            for d in range(3):
+                if ncd[d] > wdims[d]:
+                    padshape = (
+                        fsg.shape[:d] + (ncd[d] - wdims[d],) + fsg.shape[d + 1:]
+                    )
+                    fsg = jnp.concatenate(
+                        [fsg, jnp.zeros(padshape, fsg.dtype)], d
+                    )
+            f_full = jnp.roll(
+                fsg, tuple(-s for s in shifts), axis=(0, 1, 2)
+            ).reshape(C, cap, 3)
+            return jax.lax.psum(e, axes), jax.lax.psum(f_full, axes)
+
+        def force_fn(xs):
+            if brick_axes is not None:
+                parts = [
+                    _brick_part((nx, ny, nz)[d], brick_p3[d], brick_ax3[d])
+                    for d in range(3)
+                ]
+                return windowed(
+                    xs, [p[0] for p in parts], [p[1] for p in parts],
+                    [p[2] for p in parts], brick_p3, brick_axes,
+                )
             if slab_axis is not None:
                 dev = jax.lax.axis_index(slab_axis)
                 q, rem = nx // slab_ndev, nx % slab_ndev
                 x0 = (dev * q + jnp.minimum(dev, rem)).astype(jnp.int32)
                 wd = (q + (dev < rem)).astype(jnp.int32)
-                colx = cidx // (ny * nz)
-                mine = (colx >= x0) & (colx < x0 + wd)
-            else:
-                parts = [
-                    _brick_part((nx, ny, nz)[d], brick_p3[d], brick_ax3[d])
-                    for d in range(3)
-                ]
-                cco = (cidx // (ny * nz), (cidx // nz) % ny, cidx % nz)
-                mine = jnp.ones((C,), bool)
-                for d in range(3):
-                    if brick_p3[d] > 1:
-                        mine = (
-                            mine
-                            & (cco[d] >= parts[d][0])
-                            & (cco[d] < parts[d][0] + parts[d][1])
-                        )
-            m = mine.astype(dtype)
-            if Cg > C:
-                m = jnp.concatenate([m, jnp.zeros((Cg - C,), dtype)], 0)
-            return m
-
-        def _overflow_pass(xs, owncell, tbl, energy):
-            """Dense tail sweep (see ops/cellforce_pallas._kernel_overflow)
-            with ownership masking for the sharded hosts: partner low
-            slots and tail-tail rows restricted to ``owncell`` (None =
-            single device, everything owned)."""
-            from ..ops.cellforce_pallas import overflow_forces_pallas
-
-            dtype = xs.dtype
-            S = Cg * cap
-            kcap = kernel_cap
-            mo = (state.ovl < S).astype(dtype)
-            sid_c = jnp.clip(state.ovl, 0, S - 1)
-            xo3 = xs.reshape(S, 3)[sid_c] * mo[:, None]
-            own_t = mo if owncell is None else mo * owncell[sid_c // cap]
-            ocap = state.ovl.shape[0]
-            xo_f = jnp.concatenate(
-                [xo3.T, mo[None, :], own_t[None, :],
-                 jnp.zeros((3, ocap), dtype)], axis=0
-            )
-            xs_k = xs[:, :kcap, :]
-            mc_k = state.mc[:, :kcap]
-            mc_p = mc_k if owncell is None else mc_k * owncell[:, None]
-            N_low = Cg * kcap
-            N_pad = -(-N_low // 128) * 128
-            xp_f = jnp.stack(
-                [xs_k[..., 0].reshape(-1), xs_k[..., 1].reshape(-1),
-                 xs_k[..., 2].reshape(-1), mc_p.reshape(-1)]
-            )
-            if N_pad > N_low:
-                xp_f = jnp.pad(xp_f, ((0, 0), (0, N_pad - N_low)))
-            return overflow_forces_pallas(
-                xo_f, xp_f, tbl, box=spec.box,
-                lj_eps=lj.epsilon, lj_sig=lj.sigma, lj_rcut=lj.rcut,
-                energy=energy,
-            )
-
-        def _run_overflow(xs, owncell, tbl):
-            """_overflow_pass with the step's do_energy treatment."""
-            if do_energy is None:
-                return _overflow_pass(xs, owncell, tbl, True)
-            if isinstance(do_energy, bool):
-                return _overflow_pass(xs, owncell, tbl, do_energy)
-            return jax.lax.cond(
-                do_energy,
-                lambda _: _overflow_pass(xs, owncell, tbl, True),
-                lambda _: _overflow_pass(xs, owncell, tbl, False),
-                None,
-            )
-
-        def _assemble_kcap(f_low, fo, fp):
-            """Embed the (Cg, kcap, 3) low-slot forces + partner credits
-            into the (Cg, cap, 3) plane and scatter the tail-atom forces
-            into their slots."""
-            S = Cg * cap
-            N_low = Cg * kernel_cap
-            ztail = jnp.zeros((Cg, cap - kernel_cap), jnp.float32)
-            comps = []
-            for c in range(3):
-                fc = f_low[..., c] + fp[c, :N_low].reshape(Cg, kernel_cap)
-                comps.append(jnp.concatenate([fc, ztail], axis=1))
-            f_full = jnp.stack(comps, axis=-1)
-            fo3 = jnp.stack([fo[0], fo[1], fo[2]], axis=-1)
-            return (
-                f_full.reshape(S, 3)
-                .at[state.ovl]
-                .add(fo3, mode="drop")
-                .reshape(Cg, cap, 3)
-            )
-
-        def _sharded_kcap_force(xs, lowlow, tbl, axes):
-            """Reduced-cap force pass under slab/brick sharding: the
-            device's low-low sub-lattice kernel at kernel_cap + the
-            ownership-masked dense overflow sweep, combined by the same
-            one psum the full-cap pass uses.  tail_ovf falls back to the
-            full-cap pass (never-drop), like the single-device host."""
-            _check_kcap_state()
-
-            def reduced(_):
-                e_low, f_low = lowlow(
-                    xs[:, :kernel_cap], state.mc[:, :kernel_cap],
-                    kernel_cap, None,
+                return windowed(
+                    xs, [x0, 0, 0], [wd, ny, nz], [nxd_slab, ny, nz],
+                    (slab_ndev, 1, 1), slab_axis,
                 )
-                owncell = _owned_cell_mask(xs.dtype)
-                fo, fp = _run_overflow(xs, owncell, tbl)
-                f_full = _assemble_kcap(f_low, fo, fp)
-                e = e_low + jnp.sum(fo[3])
-                return jax.lax.psum(e, axes), jax.lax.psum(f_full, axes)
-
-            def fullcap(_):
-                e, f_full = lowlow(xs, state.mc, cap, None)
-                return jax.lax.psum(e, axes), jax.lax.psum(f_full, axes)
-
-            return jax.lax.cond(state.tail_ovf, fullcap, reduced, None)
-
-        def pallas_newton_force(xs):
-            ts_k, tp_k = _kernel_types(state)
-            return newton_lattice_force(
-                xs, state.mc, state.mc, spec.ncells, cap, spec.box, lj,
-                _table(state), do_energy, ts=ts_k, type_pair=tp_k,
-                mn_f=state.mnf, tn_f=state.tnf,
-            )
-
-        def slab_newton_force(xs):
-            from ..ops.cellforce_pallas import CELLS_PER_PROGRAM
-
-            dev = jax.lax.axis_index(slab_axis)
-            q, rem = nx // slab_ndev, nx % slab_ndev
-            x0 = dev * q + jnp.minimum(dev, rem)
-            wd = q + (dev < rem).astype(jnp.int32)  # my column count
-            tbl = _table(state)
-            ts_k, tp_k = _kernel_types(state)
-
-            def lowlow(xs_c, mc_c, cap_c, ts_c):
-                """LOCAL slab force pass at slot cap ``cap_c`` (pre-psum):
-                returns (e, f (Cg, cap_c, 3)) of this device's owned
-                rows.  cap_c == cap is the full-cap pass; cap_c ==
-                kernel_cap the reduced low-low pass (the tail pairs run
-                in the overflow sweep instead)."""
-                if nxd_slab + 2 <= nx:
-                    # sub-lattice: my columns + one halo column per side.
-                    # The sub-lattice's own periodic x-wrap joins columns
-                    # >= 2 apart globally (or exactly the real wrap when
-                    # it spans the lattice), so wrapped pairs are either
-                    # correct or beyond the cutoff (cell edge >=
-                    # interaction range).
-                    w = nxd_slab + 2
-                    gx = xs_c[:C].reshape(nx, ny, nz, cap_c, 3)
-                    gm = mc_c[:C].reshape(nx, ny, nz, cap_c)
-                    sub = jnp.roll(gx, 1 - x0, axis=0)[:w]
-                    subm = jnp.roll(gm, 1 - x0, axis=0)[:w]
-                    jj = jnp.arange(w)
-                    # halo columns are candidates, not rows; the window is
-                    # ceil-width, so remainder devices mask the surplus
-                    # column
-                    row_ok = (jj >= 1) & (jj <= wd)
-                    rows = subm * row_ok[:, None, None, None].astype(subm.dtype)
-                    C_sub = w * ny * nz
-                    Cg_sub = -(-C_sub // CELLS_PER_PROGRAM) * CELLS_PER_PROGRAM
-
-                    def flat(a, extra):
-                        a = a.reshape((C_sub,) + extra)
-                        if Cg_sub > C_sub:
-                            a = jnp.concatenate(
-                                [a, jnp.zeros((Cg_sub - C_sub,) + extra, a.dtype)], 0
-                            )
-                        return a
-
-                    ts_sub = (
-                        None
-                        if ts_c is None
-                        else flat(
-                            jnp.roll(
-                                ts_c[:C].reshape(nx, ny, nz, cap_c), 1 - x0,
-                                axis=0,
-                            )[:w],
-                            (cap_c,),
-                        )
-                    )
-                    e, f_sub = newton_lattice_force(
-                        flat(sub, (cap_c, 3)), flat(rows, (cap_c,)),
-                        flat(subm, (cap_c,)),
-                        (w, ny, nz), cap_c, spec.box, lj, tbl, do_energy,
-                        ts=ts_sub, type_pair=tp_k, rescredit=True,
-                        row_box=((1, 0, 0), (nxd_slab, ny, nz)),
-                    )
-                    fsg = f_sub[:C_sub].reshape(w, ny, nz, cap_c, 3)
-                    if nx > w:
-                        fsg = jnp.concatenate(
-                            [fsg, jnp.zeros((nx - w, ny, nz, cap_c, 3), xs.dtype)], 0
-                        )
-                    f_full = jnp.roll(fsg, x0 - 1, axis=0).reshape(C, cap_c, 3)
-                else:
-                    # lattice too small to slice a slab+halo: run the full
-                    # kernel with rows restricted to my columns (correct,
-                    # no compute saving — only reached at test-scale
-                    # lattices)
-                    colx = (jnp.arange(C, dtype=jnp.int32) // (ny * nz))
-                    mine = (colx >= x0) & (colx < x0 + wd)
-                    mine = mine.astype(xs.dtype)[:, None]
-                    if Cg > C:
-                        mine = jnp.concatenate(
-                            [mine, jnp.zeros((Cg - C, 1), xs.dtype)], 0
-                        )
-                    e, f_rows_g = newton_lattice_force(
-                        xs_c, mc_c * mine, mc_c, spec.ncells, cap_c,
-                        spec.box, lj, tbl, do_energy, ts=ts_c,
-                        type_pair=tp_k, rescredit=True,
-                    )
-                    f_full = f_rows_g[:C]
-                if Cg > C:
-                    f_full = jnp.concatenate(
-                        [f_full, jnp.zeros((Cg - C, cap_c, 3), xs.dtype)], 0
-                    )
-                return e, f_full
-
-            if kernel_cap is None:
-                e, f_full = lowlow(xs, state.mc, cap, ts_k)
-                f_rows = jax.lax.psum(f_full, slab_axis)
-                e = jax.lax.psum(e, slab_axis)
-                return e, f_rows
-            return _sharded_kcap_force(xs, lowlow, tbl, slab_axis)
-
-        def brick_newton_force(xs):
-            """Brick decomposition (2-D or 3-D): each device owns an
-            x-range x y-range (x z-range) of cells; the Newton kernel runs
-            on the owned brick plus a one-cell halo ring along every
-            bricked dim, per-slot forces combine with one psum over the
-            mesh axes.  Same correctness argument as the slab: a
-            cross-brick pair is enumerated from its lex-low cell by
-            exactly one device (the one owning that cell as a row), whose
-            halo contains the partner; the Newton credit lands in the halo
-            copy and the psum delivers it to the owner."""
-            from ..ops.cellforce_pallas import CELLS_PER_PROGRAM
-
-            ncd = (nx, ny, nz)
-            parts = [
-                _brick_part(ncd[d], brick_p3[d], brick_ax3[d])
-                for d in range(3)
-            ]
-            starts = [p[0] for p in parts]
-            widths = [p[1] for p in parts]
-            halo = [1 if brick_p3[d] > 1 else 0 for d in range(3)]
-            tbl = _table(state)
-            ts_k, tp_k = _kernel_types(state)
-            sliceable = all(
-                brick_p3[d] == 1 or parts[d][2] + 2 <= ncd[d]
-                for d in range(3)
-            )
-
-            def lowlow(xs_c, mc_c, cap_c, ts_c):
-                """LOCAL brick force pass at slot cap ``cap_c`` (pre-psum);
-                see the slab counterpart."""
-                if sliceable:
-                    wdims = tuple(
-                        parts[d][2] + 2 if halo[d] else ncd[d]
-                        for d in range(3)
-                    )
-                    gx_ = xs_c[:C].reshape(nx, ny, nz, cap_c, 3)
-                    gm_ = mc_c[:C].reshape(nx, ny, nz, cap_c)
-                    shifts = tuple(halo[d] - starts[d] for d in range(3))
-
-                    def subgrid(a):
-                        return jnp.roll(a, shifts, axis=(0, 1, 2))[
-                            : wdims[0], : wdims[1], : wdims[2]
-                        ]
-
-                    sub = subgrid(gx_)
-                    subm = subgrid(gm_)
-                    ok1 = [
-                        (
-                            (jnp.arange(wdims[d]) >= 1)
-                            & (jnp.arange(wdims[d]) <= widths[d])
-                            if halo[d]
-                            else jnp.ones((wdims[d],), bool)
-                        )
-                        for d in range(3)
-                    ]
-                    row_ok = (
-                        ok1[0][:, None, None]
-                        & ok1[1][None, :, None]
-                        & ok1[2][None, None, :]
-                    )
-                    rows = subm * row_ok[..., None].astype(subm.dtype)
-                    C_sub = wdims[0] * wdims[1] * wdims[2]
-                    Cg_sub = -(-C_sub // CELLS_PER_PROGRAM) * CELLS_PER_PROGRAM
-
-                    def flat(a, extra):
-                        a = a.reshape((C_sub,) + extra)
-                        if Cg_sub > C_sub:
-                            a = jnp.concatenate(
-                                [a, jnp.zeros((Cg_sub - C_sub,) + extra, a.dtype)], 0
-                            )
-                        return a
-
-                    ts_sub = (
-                        None
-                        if ts_c is None
-                        else flat(
-                            subgrid(ts_c[:C].reshape(nx, ny, nz, cap_c)),
-                            (cap_c,),
-                        )
-                    )
-                    e, f_sub = newton_lattice_force(
-                        flat(sub, (cap_c, 3)), flat(rows, (cap_c,)),
-                        flat(subm, (cap_c,)),
-                        wdims, cap_c, spec.box, lj, tbl, do_energy,
-                        ts=ts_sub, type_pair=tp_k, rescredit=True,
-                        row_box=(
-                            tuple(halo),
-                            tuple(
-                                parts[d][2] if halo[d] else ncd[d]
-                                for d in range(3)
-                            ),
-                        ),
-                    )
-                    fsg = f_sub[:C_sub].reshape(wdims + (cap_c, 3))
-                    for d in range(3):
-                        if ncd[d] > wdims[d]:
-                            padshape = (
-                                fsg.shape[:d]
-                                + (ncd[d] - wdims[d],)
-                                + fsg.shape[d + 1:]
-                            )
-                            fsg = jnp.concatenate(
-                                [fsg, jnp.zeros(padshape, xs.dtype)], d
-                            )
-                    f_full = jnp.roll(
-                        fsg,
-                        tuple(starts[d] - halo[d] for d in range(3)),
-                        axis=(0, 1, 2),
-                    ).reshape(C, cap_c, 3)
-                else:
-                    # lattice too small to slice brick+halo: full kernel
-                    # with rows restricted to my cells (test-scale only)
-                    cidx = jnp.arange(C, dtype=jnp.int32)
-                    cco = [cidx // (ny * nz), (cidx // nz) % ny, cidx % nz]
-                    mine = jnp.ones((C,), bool)
-                    for d in range(3):
-                        if brick_p3[d] > 1:
-                            mine = (
-                                mine
-                                & (cco[d] >= starts[d])
-                                & (cco[d] < starts[d] + widths[d])
-                            )
-                    mine = mine.astype(xs.dtype)[:, None]
-                    if Cg > C:
-                        mine = jnp.concatenate(
-                            [mine, jnp.zeros((Cg - C, 1), xs.dtype)], 0
-                        )
-                    # the cached rolled planes only fit the full cap; the
-                    # reduced pass rebuilds from the reduced mask in-call
-                    mn_c = state.mnf if cap_c == cap else state.mkf
-                    tn_c = state.tnf if cap_c == cap else None
-                    e, f_rows_g = newton_lattice_force(
-                        xs_c, mc_c * mine, mc_c, spec.ncells, cap_c,
-                        spec.box, lj, tbl, do_energy, ts=ts_c,
-                        type_pair=tp_k, mn_f=mn_c, tn_f=tn_c,
-                        rescredit=True,
-                    )
-                    f_full = f_rows_g[:C]
-                if Cg > C:
-                    f_full = jnp.concatenate(
-                        [f_full, jnp.zeros((Cg - C, cap_c, 3), xs.dtype)], 0
-                    )
-                return e, f_full
-
-            if kernel_cap is None:
-                e, f_full = lowlow(xs, state.mc, cap, ts_k)
-                f_rows = jax.lax.psum(f_full, brick_axes)
-                e = jax.lax.psum(e, brick_axes)
-                return e, f_rows
-            return _sharded_kcap_force(xs, lowlow, tbl, brick_axes)
-
-        def pallas_force(xs):
-            from ..ops.cellforce_pallas import cell_forces_pallas
-
-            if state.mn is None:
-                raise ValueError(
-                    'use_pallas="full" needs the stencil id masks: build '
-                    "the state with init_cell_state(..., with_ids=True)"
-                )
-            if state.core.cheb is None or types_arr is not None:
-                raise ValueError(
-                    'use_pallas="full" is Chebyshev-only and untyped; use '
-                    "the default Newton kernel"
-                )
-            xn = _stencil_neighbors(xs)
-            cheb = state.core.cheb
-            f_rows, eb = cell_forces_pallas(
-                xs, xn, state.mc, state.mn, state.sid, state.nid,
-                cheb.cval, cheb.cder,
-                cap=cap, box=spec.box,
-                lj_eps=lj.epsilon, lj_sig=lj.sigma, lj_rcut=lj.rcut,
-                cv_lo=cheb.lo, cv_hi=cheb.hi,
-            )
-            return 0.5 * jnp.sum(eb), f_rows
-
-        def pallas_rc_force(xs):
-            """Newton pass with in-kernel credit accumulation (resident
-            force planes): same prep as the planar path, but no credit
-            outputs or application rolls."""
-            from ..ops.cellforce_pallas import (
-                HALF_OFFSETS,
-                cell_forces_pallas_newton_rescredit,
-            )
-
-            xc_f, xn_f = _planar_coord_views(xs, spec.ncells, cap, Cg)
-            mn_f = (
-                state.mnf
-                if state.mnf is not None
-                else _half_concat(state.mc, spec.ncells, cap, Cg)
-            )
-            tbl = _table(state)
-            ts_k, tp_k = _kernel_types(state)
-            if ts_k is None:
-                types_k = None
-            else:
-                tn_f = (
-                    state.tnf
-                    if state.tnf is not None
-                    else _half_concat(ts_k, spec.ncells, cap, Cg)
-                )
-                types_k = (ts_k, tn_f)
-
-            def call(energy):
-                return cell_forces_pallas_newton_rescredit(
-                    xc_f, xn_f, state.mc, mn_f, tbl,
-                    cap=cap, ncells=spec.ncells, box=spec.box,
-                    lj_eps=lj.epsilon, lj_sig=lj.sigma, lj_rcut=lj.rcut,
-                    energy=energy, types=types_k, type_pair=tp_k,
-                )
-
-            if do_energy is None:
-                fx, fy, fz, eb = call(True)
-            elif isinstance(do_energy, bool):
-                fx, fy, fz, eb = call(do_energy)
-            else:
-                fx, fy, fz, eb = jax.lax.cond(
-                    do_energy, lambda _: call(True), lambda _: call(False), None
-                )
-            return jnp.sum(eb), jnp.stack([fx, fy, fz], axis=-1)
-
-        def pallas_rc_overflow_force(xs):
-            """Reduced-cap Newton pass + dense overflow side pass
-            (kernel_cap): the resident-credit kernel runs over low slots
-            (rows AND candidates < kernel_cap); pairs touching a tail
-            slot are swept densely from the cached compacted tail list
-            (state.ovl) against all placed low slots, with Newton credits
-            added onto the low-slot force planes and tail-atom forces
-            scattered back into their slots (~overflow_cap rows — a
-            trivial scatter).  When the rebuild-period tail list
-            overflowed (state.tail_ovf) the WHOLE pass falls back
-            in-graph to the full-cap kernel — never-drop: forces are
-            bitwise the kernel_cap=None step's for that period."""
-            from ..ops.cellforce_pallas import (
-                cell_forces_pallas_newton_rescredit,
-            )
-
-            _check_kcap_state()
-            kcap = kernel_cap
-
-            def reduced(_):
-                xs_k = xs[:, :kcap, :]
-                mc_k = state.mc[:, :kcap]
-                xc_f, xn_f = _planar_coord_views(xs_k, spec.ncells, kcap, Cg)
-                tbl = _table(state)
-
-                def call(energy):
-                    fx, fy, fz, eb = cell_forces_pallas_newton_rescredit(
-                        xc_f, xn_f, mc_k, state.mkf, tbl,
-                        cap=kcap, ncells=spec.ncells, box=spec.box,
-                        lj_eps=lj.epsilon, lj_sig=lj.sigma, lj_rcut=lj.rcut,
-                        energy=energy,
-                    )
-                    fo, fp = _overflow_pass(xs, None, tbl, energy)
-                    return fx, fy, fz, eb, fo, fp
-
-                if do_energy is None:
-                    fx, fy, fz, eb, fo, fp = call(True)
-                elif isinstance(do_energy, bool):
-                    fx, fy, fz, eb, fo, fp = call(do_energy)
-                else:
-                    fx, fy, fz, eb, fo, fp = jax.lax.cond(
-                        do_energy, lambda _: call(True),
-                        lambda _: call(False), None,
-                    )
-                f_low = jnp.stack([fx, fy, fz], axis=-1)
-                f_full = _assemble_kcap(f_low, fo, fp)
-                return jnp.sum(eb) + jnp.sum(fo[3]), f_full
-
-            def fullcap(_):
-                # never-drop fallback: the tail list overflowed this
-                # rebuild period, so run the period on the full-cap
-                # kernel — bitwise the kernel_cap=None step
-                return pallas_rc_force(xs)
-
-            return jax.lax.cond(state.tail_ovf, fullcap, reduced, None)
-
-        def force_fn(xs):
-            if brick_axes is not None:
-                return brick_newton_force(xs)
-            if slab_axis is not None:
-                if not use_pallas:
-                    raise ValueError("slab mode requires use_pallas")
-                return slab_newton_force(xs)
-            if use_pallas == "full":
-                return pallas_force(xs)
-            if use_pallas == "newton":
-                # half-stencil kernel with host-side credit rolls (the
-                # "rc" default applies credits in-kernel instead)
-                return pallas_newton_force(xs)
-            if use_pallas:
-                if kernel_cap is not None:
-                    return pallas_rc_overflow_force(xs)
-                return pallas_rc_force(xs)
-            dtype = xs.dtype
-            aid2 = state.aid.reshape(Cg, cap)
-            xs3, aid2p = _xs_padded(xs, aid2, dtype)
-
-            def one_chunk(ci):
-                disp, r, valid, ac, cv_ok = chunk_pairs(xs3, aid2p, ci, dtype)
-                inr = jnp.where(r < lj.rcut, 1.0 / r, 0.0)
-                sr6 = (lj.sigma * inr) ** 6
-                fmag = 4 * lj.epsilon * (12 * sr6 * sr6 - 6 * sr6) * inr * inr
-                f_rows = jnp.sum(fmag[..., None] * disp, axis=2)
-
-                r_cv = r if cv_ok is None else jnp.where(cv_ok, r, jnp.inf)
-                if state.core.cheb is not None:
-                    val, der0 = state.core.cheb.value_deriv(
-                        jnp.where(jnp.isfinite(r_cv), r_cv, -1.0)
-                    )
-                else:
-                    # exact path: boundary-aware cubic-Hermite grid lookup
-                    # over the compact cutoff-pair tile (not the N^2 matrix)
-                    val, der = state.core.bias.bias.get_value_deriv(
-                        jnp.where(jnp.isfinite(r_cv), r_cv, -1.0)[..., None]
-                    )
-                    der0 = der[..., 0]
-                    val = jnp.where(jnp.isfinite(r_cv), val, 0.0)
-                    der0 = jnp.where(jnp.isfinite(r_cv), der0, 0.0)
-                binr = jnp.where(jnp.isfinite(r_cv), 1.0 / r_cv, 0.0)
-                f_rows = f_rows + jnp.sum((-der0 * binr)[..., None] * disp, axis=2)
-                e_b = jnp.sum(jnp.where(jnp.isfinite(r_cv), val, 0.0))
-                return f_rows, e_b
-
-            f_rows, e_bs = jax.lax.map(one_chunk, jnp.arange(n_chunks))
-            f_slots = f_rows.reshape(Cp, cap, 3)[:Cg]
-            if Cp < Cg:
-                f_slots = jnp.concatenate(
-                    [f_slots, jnp.zeros((Cg - Cp, cap, 3), dtype)], 0
-                )
-            return 0.5 * jnp.sum(e_bs), f_slots
+            return lf(xs, state.mc, state.mc, spec.ncells, ts)
 
         return force_fn
 
@@ -1528,12 +555,12 @@ def make_cell_step(
     # values the replicated draw produces, so sharded and single-device
     # trajectories are bitwise identical at any kT.  The reference
     # delegates integration to LAMMPS (fix nve/langevin); this is the
-    # TPU-native analog of LAMMPS's per-rank thermostat over owned atoms.
+    # analog of LAMMPS's per-rank thermostat over owned atoms.
     _c1_np = float(np.exp(-lp.friction * lp.dt))
     _c2_np = float(
         np.sqrt(max(0.0, (1.0 - _c1_np * _c1_np)) * lp.kT / lp.mass)
     )
-    _rows_all = jnp.arange(Cg * cap, dtype=jnp.int32)
+    _rows_all = jnp.arange(C * cap, dtype=jnp.int32)
     rowlen_z = nz * cap
     rowlen_yz = ny * rowlen_z
 
@@ -1548,7 +575,7 @@ def make_cell_step(
         from ..ops.hashrng import normal_rows_cols
 
         dtype = state.xs.dtype
-        xi = normal_rows_cols(seeds, _rows_all, 3, dtype).reshape(Cg, cap, 3)
+        xi = normal_rows_cols(seeds, _rows_all, 3, dtype).reshape(C, cap, 3)
         x2, v2 = _p1_update(state.xs, state.vs, state.fs, xi, dtype)
         m = state.mc[..., None]
         return x2 * m, v2 * m
@@ -1567,10 +594,6 @@ def make_cell_step(
         axes = tuple(a for _, a in rolls)
         x2 = jnp.roll(x2, shifts, axes).reshape(C, cap, 3)
         v2 = jnp.roll(v2, shifts, axes).reshape(C, cap, 3)
-        if Cg > C:
-            z = jnp.zeros((Cg - C, cap, 3), dtype)
-            x2 = jnp.concatenate([x2, z], 0)
-            v2 = jnp.concatenate([v2, z], 0)
         return jax.lax.psum((x2, v2), axis_names)
 
     def phase1_slab(state, seeds):
@@ -1690,7 +713,6 @@ def make_cell_step(
         slot, candidate column) — bitwise, including truncation (a hill
         with global rank < capacity has within-device rank < capacity, so
         it survives the per-device compaction and the merge keeps it)."""
-        from ..ops.cellforce_pallas import HALF_OFFSETS
         from ..ops.hashrng import seeds_from_key, uniform_rows_cols
 
         k13 = len(HALF_OFFSETS)
@@ -1846,20 +868,14 @@ def make_cell_step(
             cand = [pad_rows(build_planar_loc(g_l[..., c])) for c in range(3)]
             candm = pad_rows(
                 localize4(
-                    jnp.concatenate(
-                        [state.mc[:C], state.mnf[:C]], axis=1
-                    ).reshape(nx, ny, nz, width)
+                    jnp.concatenate([state.mc, state.mnf], axis=1).reshape(
+                        nx, ny, nz, width
+                    )
                 ).reshape(C_loc, width)
-                if state.mnf is not None
-                else build_planar_loc(localize4(gm))
             )
         else:
             cand = [pad_rows(build_planar(g[..., c])) for c in range(3)]
-            candm = pad_rows(
-                jnp.concatenate([state.mc[:C], state.mnf[:C]], axis=1)
-                if state.mnf is not None
-                else build_planar(gm)
-            )
+            candm = pad_rows(jnp.concatenate([state.mc, state.mnf], axis=1))
         bb = box_arr.astype(dtype)
         bmax2 = bmax_cv * bmax_cv
 
@@ -2046,11 +1062,11 @@ def make_cell_step(
 
     def collect_hills(state: CellPairState, xs, key, last_calls, dtype):
         """Two-level hill collection over cell-slot rows."""
-        aid2 = state.aid.reshape(Cg, cap)
-        xs3, aid2p = _xs_padded(xs, aid2, dtype)
-        sten_p = sten_g if Cp <= Cg else jnp.concatenate(
-            [sten_g, jnp.zeros((Cp - Cg, 27), jnp.int32)], 0
-        )
+        aid2 = state.aid.reshape(C, cap)
+        xs3, aid2p = pad_cells(xs, 0), pad_cells(aid2, n)
+        whole = ((0, 0, 0), spec.ncells)
+        xn3 = pad_cells(stencil_views(xs, spec.ncells, *whole), 0)  # (Cp, 27cap, 3)
+        an2 = pad_cells(stencil_views(aid2, spec.ncells, *whole), n)  # (Cp, 27cap)
 
         # counter-hash uniforms (ops/hashrng): ~2x cheaper than Threefry at
         # the ~2e8 draws/round this pass needs, re-derivable in pass 2
@@ -2074,9 +1090,7 @@ def make_cell_step(
             row_counts, ncalls = carry
             # r2-only tile: the accept pass needs neither displacements nor
             # the sqrt (candidate test compares squared distances)
-            _, r2m, valid, _, cv_ok = chunk_pairs(
-                xs3, aid2p, ci, dtype, need_disp=False, squared=True
-            )
+            r2m, cv_ok = chunk_pairs(xs3, aid2p, xn3, an2, ci, dtype)
             if cv_ok is not None:
                 r2m = jnp.where(cv_ok, r2m, jnp.inf)
             rows = (ci * cell_chunk * cap + jnp.arange(cell_chunk * cap)).astype(jnp.int32)
@@ -2108,9 +1122,8 @@ def make_cell_step(
         cell_ids = rows_c // cap
         xi = xs3.reshape(-1, 3)[rows_c]  # (row_cap, 3)
         ai = aid2p.reshape(-1)[rows_c]
-        nbr = sten_p[cell_ids]  # (row_cap, 27)
-        xn = xs3[nbr].reshape(row_cap, 27 * cap, 3)
-        an = aid2p[nbr].reshape(row_cap, 27 * cap)
+        xn = xn3[cell_ids]  # (row_cap, 27cap, 3)
+        an = an2[cell_ids]
         disp = xi[:, None, :] - xn
         b = box_arr.astype(dtype)
         disp = disp - jnp.round(disp / b) * b
@@ -2120,8 +1133,7 @@ def make_cell_step(
         r = jnp.sqrt(jnp.where(valid, r2, jnp.inf))
         if types_arr is not None:
             ti, tj = tpair
-            t_i = jnp.where(ai < n, types_arr[jnp.clip(ai, 0, n - 1)], 0)
-            t_j = jnp.where(an < n, types_arr[jnp.clip(an, 0, n - 1)], 0)
+            t_i, t_j = slot_types(ai), slot_types(an)
             cv_ok2 = ((t_i[:, None] == ti) & (t_j == tj)) | (
                 (t_i[:, None] == tj) & (t_j == ti)
             )
@@ -2230,121 +1242,47 @@ def make_cell_step(
         step_no = core.step + 1
         do_rebuild = (step_no % rebuild_stride) == 0
 
-        def _tail_fields(tail_count):
-            """(tail_count, tail_ovf, tail_fallbacks) for a fresh rebuild."""
-            if kernel_cap is None:
-                return None, None, None
-            t_ovf = tail_count > overflow_cap
-            return (
-                tail_count, t_ovf,
-                state.tail_fallbacks + t_ovf.astype(jnp.int32),
-            )
-
         def full_rebuild(_):
             x_at, v_at, f_at = _atoms_from_slots(spec, state.aid, xs, vs, fs)
             t = build_table(spec, x_at)
-            aid_g = jnp.concatenate(
-                [t.aid, jnp.full((Cg * cap - spec.n_slots,), n, jnp.int32)]
-            )
-            (nxs, nvs, nfs, mc, mn, sid, nid, ts, mnf, tnf, mkf, ovl,
-             tail_count) = _slots_from_atoms(
-                spec, Cg, sten_g, x_at, v_at, f_at, aid_g,
-                with_ids=state.sid is not None,
-                types_arr=types_arr if state.ts is not None else None,
-                kernel_cap=kernel_cap, overflow_cap=overflow_cap,
+            nxs, nvs, nfs, mc, mnf = _slots_from_atoms(
+                spec, x_at, v_at, f_at, t.aid
             )
             return (
-                aid_g, nxs, nvs, nfs, mc, mn, sid, nid, ts, mnf, tnf,
-                mkf, ovl, *_tail_fields(tail_count),
-                state.table_overflow | t.overflow,
-                x_at, v_at, f_at,
+                t.aid, nxs, nvs, nfs, mc, mnf,
+                state.table_overflow | t.overflow, x_at, v_at, f_at,
             )
 
         def rebuild(_):
-            # with_ids (legacy "full"-kernel) states need the stencil id
-            # masks regenerated — only the argsort rebuild builds those
-            if state.sid is not None:
-                return full_rebuild(None)
             from .cells import apply_incremental_rebin, plan_incremental_rebin
 
-            S = Cg * cap
-            plan = plan_incremental_rebin(spec, Cg, state.aid, xs, mover_cap)
-            feasible = plan.feasible
-            if kernel_cap is not None:
-                # a rebin must not grow the tail past the overflow list:
-                # count tail arrivals/departures from the plan (a mover
-                # whose source AND dest are tail slots cancels) and fall
-                # back to the packing rebuild when the post-rebin tail
-                # would exceed overflow_cap.  cur_tail is the carried TRUE
-                # population (state.ovl is incomplete when the period
-                # overflowed), so an overflowed period always repacks here
-                cur_tail = state.tail_count
-                leave = jnp.sum(
-                    ((plan.m_src < S) & (plan.m_src % cap >= kernel_cap))
-                    .astype(jnp.int32)
-                )
-                arrive = jnp.sum(
-                    ((plan.m_dest < S) & (plan.m_dest % cap >= kernel_cap))
-                    .astype(jnp.int32)
-                )
-                feasible = feasible & (
-                    cur_tail - leave + arrive <= overflow_cap
-                )
+            S = C * cap
+            plan = plan_incremental_rebin(spec, state.aid, xs, mover_cap)
 
             def fast(_):
                 # slot-to-slot incremental rebin: only boundary-crossing
                 # atoms move (~1-2% at stride 10); the full argsort path
-                # round-trips EVERY atom through atom order (~11 ms at
-                # 100k on v5e, ~90% of it gathers/scatters)
-                arrays = [
-                    xs.reshape(S, 3), vs.reshape(S, 3), fs.reshape(S, 3)
-                ]
-                if state.ts is not None:
-                    arrays.append(state.ts.reshape(S))
+                # round-trips EVERY atom through atom order
                 aid_new, outs = apply_incremental_rebin(
-                    spec, plan, state.aid, arrays
+                    spec, plan, state.aid,
+                    [xs.reshape(S, 3), vs.reshape(S, 3), fs.reshape(S, 3)],
                 )
-                aid2 = aid_new.reshape(Cg, cap)
-                mc2 = (aid2 < n).astype(xs.dtype)
-                nxs = outs[0].reshape(Cg, cap, 3) * mc2[..., None]
-                nvs = outs[1].reshape(Cg, cap, 3) * mc2[..., None]
-                nfs = outs[2].reshape(Cg, cap, 3) * mc2[..., None]
-                ts2 = (
-                    outs[3].reshape(Cg, cap) * mc2
-                    if state.ts is not None
-                    else None
+                mc2 = (aid_new.reshape(C, cap) < n).astype(xs.dtype)
+                nxs, nvs, nfs = (
+                    o.reshape(C, cap, 3) * mc2[..., None] for o in outs
                 )
-                mnf2 = _half_concat(mc2, spec.ncells, cap, Cg)
-                tnf2 = (
-                    _half_concat(ts2, spec.ncells, cap, Cg)
-                    if ts2 is not None
-                    else None
-                )
-                if kernel_cap is not None:
-                    mkf2 = _half_concat(
-                        mc2[:, :kernel_cap], spec.ncells, kernel_cap, Cg
-                    )
-                    ovl2, tcount2 = _tail_list(
-                        aid2, n, cap, kernel_cap, overflow_cap
-                    )
-                else:
-                    mkf2, tcount2 = None, None
-                    ovl2 = None
                 # core.x/v/f stay stale (atom_positions() is the live view)
                 return (
-                    aid_new, nxs, nvs, nfs, mc2, None, None, None, ts2,
-                    mnf2, tnf2, mkf2, ovl2, *_tail_fields(tcount2),
+                    aid_new, nxs, nvs, nfs, mc2,
+                    _half_concat(mc2, spec.ncells, cap),
                     state.table_overflow, core.x, core.v, core.f,
                 )
 
-            return jax.lax.cond(feasible, fast, full_rebuild, None)
+            return jax.lax.cond(plan.feasible, fast, full_rebuild, None)
 
         def keep(_):
             return (
-                state.aid, xs, vs, fs, state.mc, state.mn, state.sid,
-                state.nid, state.ts, state.mnf, state.tnf,
-                state.mkf, state.ovl, state.tail_count, state.tail_ovf,
-                state.tail_fallbacks,
+                state.aid, xs, vs, fs, state.mc, state.mnf,
                 state.table_overflow, core.x, core.v, core.f,
             )
 
@@ -2354,11 +1292,7 @@ def make_cell_step(
             outs = rebuild(None)
         else:
             outs = keep(None)
-        (
-            aid_g, nxs, nvs, nfs, mc, mn, sid, nid, ts, mnf, tnf, mkf, ovl,
-            tail_count, tail_ovf, tail_fallbacks,
-            overflow, x_at, v_at, f_at,
-        ) = outs
+        aid_g, nxs, nvs, nfs, mc, mnf, overflow, x_at, v_at, f_at = outs
 
         new_core = PairEDMState(
             x=x_at, v=v_at, f=f_at, key=key, bias=bias_state,
@@ -2367,11 +1301,8 @@ def make_cell_step(
             cheb=cheb,
         )
         new_state = CellPairState(
-            core=new_core, aid=aid_g, xs=nxs, vs=nvs, fs=nfs,
-            mc=mc, mn=mn, sid=sid, nid=nid, table_overflow=overflow,
-            ts=ts, mnf=mnf, tnf=tnf, mkf=mkf, ovl=ovl,
-            tail_count=tail_count, tail_ovf=tail_ovf,
-            tail_fallbacks=tail_fallbacks,
+            core=new_core, aid=aid_g, xs=nxs, vs=nvs, fs=nfs, mc=mc,
+            table_overflow=overflow, mnf=mnf,
         )
         return new_state, ((e_bias, log) if collect_records else e_bias)
 

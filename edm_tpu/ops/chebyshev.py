@@ -1,12 +1,11 @@
-"""Gather-free spectral evaluation of the 1-D bias table — the TPU-native
-answer to the reference's per-pair spline table lookup (lib/grid.h:95-137).
+"""Gather-free spectral evaluation of the 1-D bias table — an alternative to
+the reference's per-pair spline table lookup (lib/grid.h:95-137).
 
-Why: XLA TPU gathers cost ~9 ns/element (measured on v5e); the pairwise-CV
-force path needs millions of table lookups per MD step, making gathers the
-dominant cost of the entire simulation.  The bias field is a sum of smooth
-Gaussians (analytic), so a Chebyshev interpolant of the current bias grid
-evaluates value AND derivative with ~4*deg flops per point and ZERO memory
-indirection — pure VPU work that XLA fuses into the pair pass.
+The pairwise-CV force path needs millions of table lookups per MD step.
+The bias field is a sum of smooth Gaussians (analytic), so a Chebyshev
+interpolant of the current bias grid evaluates value AND derivative with
+~4*deg flops per point and no memory indirection — arithmetic that fuses
+into the pair pass.
 
 Protocol: after every hill round (the only time the grid changes) the host
 step refits coefficients by sampling the exact cubic-Hermite interpolant at
@@ -72,8 +71,8 @@ def derivative_coeffs(c: jax.Array, lo: float, hi: float) -> jax.Array:
     deg = c.shape[0] - 1
     # c'_k = c'_{k+2} + 2 (k+1) c_{k+1} unrolls to parity-split suffix sums
     # (c'_k = sum of 2j*c_j over j > k with j-k odd): two small flipped
-    # cumsums instead of deg scalar extract/stack ops, which each cost a
-    # separate tiny HBM op on TPU and dominated the per-round refit
+    # cumsums instead of deg scalar extract/stack ops, each a separate tiny
+    # device op
     j = jnp.arange(1, deg + 1, dtype=c.dtype)
     w = 2.0 * j * c[1:]  # w-index k corresponds to j = k+1
     cp = jnp.zeros((deg,), c.dtype)
@@ -93,7 +92,7 @@ def clenshaw(c: jax.Array, x: jax.Array, lo: float, hi: float) -> jax.Array:
 
     Statically unrolled: a ``lax.scan`` here would materialize the full-size
     b1/b2 carries in HBM on every one of deg iterations (memory-bound, ~100x
-    slower at MD pair counts); the unrolled chain fuses into one VPU kernel.
+    slower at MD pair counts); the unrolled chain fuses into one kernel.
     """
     t = (2.0 * x - (lo + hi)) / (hi - lo)
     t2 = 2.0 * t
@@ -215,7 +214,10 @@ def fit_gauss_grid(gauss_grid, deg: int = 64, panels: int = 1) -> ChebTable:
         _ls_fit_matrix((g.min[0], hi, g.dx[0], g.nbins[0]), deg, panels),
         gauss_grid.dtype,
     )
-    cval = M @ gauss_grid.grid.values  # (P, deg+1)
+    # HIGHEST: a TF32 product would add ~1e-3 relative error to the fit
+    cval = jnp.matmul(
+        M, gauss_grid.grid.values, precision=jax.lax.Precision.HIGHEST
+    )  # (P, deg+1)
     pw = (hi - lo) / panels
     cder = jax.vmap(lambda c: derivative_coeffs(c, 0.0, pw))(cval)
     return ChebTable(cval=cval, cder=cder, lo=float(lo), hi=float(hi))

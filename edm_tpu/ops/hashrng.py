@@ -4,11 +4,9 @@ The reference draws one RanMars uniform per candidate pair per hill step
 (fix_edm_pair.cpp:229-237); this build's streams already differ (README
 parity ledger: deterministic jax.random replaces RanMars — statistical,
 not bitwise, reproducibility).  The production hosts need ~2e8 uniforms
-per hill round at 100k atoms, and Threefry costs ~40 VPU ops per draw —
-measured 6.7 ms/round on v5e, the single largest hill-round component.
+per hill round at 100k atoms, and Threefry costs ~40 integer ops per draw.
 
-This module provides a murmur3-finalizer counter hash (~10 ops/draw,
-measured 3.3 ms for the same draw count): each (row, column) candidate
+This module provides a murmur3-finalizer counter hash (~10 ops/draw): each (row, column) candidate
 slot gets an independent 32-bit uniform keyed by two seeds derived from
 the round's Threefry key, so the stream stays deterministic per (key,
 slot) and re-derivable between the count and extract passes.  The

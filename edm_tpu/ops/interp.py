@@ -7,8 +7,8 @@ endpoint slope is set from the stored gradient (the qq = -der/value ratio,
 with the 1e-7 zero-table guard at grid.h:113-114).  The reference's
 periodic "stride wrap" trick (grid.h:432-433) becomes a modular index wrap.
 
-This is the force-lookup hot path: O(atoms * 2^D) fused gathers + FMA — pure
-VPU work that XLA vectorizes; no Pallas needed at realistic atom counts.
+This is the force-lookup hot path: O(atoms * 2^D) fused gathers + FMA that
+XLA vectorizes.
 """
 
 from __future__ import annotations
@@ -16,77 +16,6 @@ from __future__ import annotations
 import itertools
 
 import jax.numpy as jnp
-
-
-def _interp1d_matvec(grid, x, ok, xw, idx):
-    """1-D cubic-Hermite lookup as a chunked one-hot matmul.
-
-    Mathematically identical to the gather path (same polynomial, same qq
-    guard); the 2-corner table reads become one (P, G) x (G, 4) matmul on
-    the MXU.  One-hot rows have a single 1.0, so the selection is exact at
-    HIGH precision (bf16x3 reproduces f32 operands bit-exactly when
-    multiplied by 1.0 and summed with zeros; verified bitwise vs the gather
-    path in tests)."""
-    import jax
-
-    spec = grid.spec
-    dtype = grid.dtype
-    G = int(spec.nbins[0])
-    dx = jnp.asarray(spec.dx[0], dtype)
-    lo = jnp.asarray(spec.min[0], dtype)
-    v = grid.values.reshape(-1)
-    d = grid.derivs.reshape(-1)
-    if spec.periodic[0]:
-        vn, dn = jnp.roll(v, -1), jnp.roll(d, -1)
-    else:
-        vn = jnp.concatenate([v[1:], v[-1:]])
-        dn = jnp.concatenate([d[1:], d[-1:]])
-    M = jnp.stack([v, d, vn, dn], axis=-1)  # (G, 4)
-
-    flat_idx = idx[..., 0].reshape(-1)
-    P = flat_idx.shape[0]
-    CH = 131072  # ~80 MB one-hot per chunk at G=151
-    n_chunks = -(-P // CH)
-    grange = jnp.arange(G, dtype=flat_idx.dtype)
-
-    if n_chunks == 1:
-        oh = (flat_idx[:, None] == grange[None, :]).astype(dtype)
-        coefs = jnp.matmul(oh, M, precision=jax.lax.Precision.HIGH)
-    else:
-        pad = n_chunks * CH - P
-        fi = jnp.concatenate([flat_idx, jnp.zeros((pad,), flat_idx.dtype)])
-
-        def one(ci):
-            seg = jax.lax.dynamic_slice_in_dim(fi, ci * CH, CH)
-            oh = (seg[:, None] == grange[None, :]).astype(dtype)
-            return jnp.matmul(oh, M, precision=jax.lax.Precision.HIGH)
-
-        coefs = jax.lax.map(one, jnp.arange(n_chunks, dtype=jnp.int32))
-        coefs = coefs.reshape(-1, 4)[:P]
-    coefs = coefs.reshape(x.shape[:-1] + (4,))
-
-    # same arithmetic as the gather path below (bit-parity)
-    where0 = xw[..., 0] - lo - idx[..., 0].astype(dtype) * dx
-    t = where0 / dx
-    value = jnp.zeros(x.shape[:-1], dtype)
-    deriv1 = jnp.zeros(x.shape[:-1], dtype)
-    for corner, sign in ((0, 1.0), (1, -1.0)):
-        tabf = coefs[..., 2 * corner]
-        tabder = coefs[..., 2 * corner + 1]
-        safe = jnp.abs(tabf) >= 1e-7
-        qq = jnp.where(safe, -tabder / jnp.where(safe, tabf, 1.0), 0.0)
-        X = jnp.abs(t - corner)
-        X2 = X * X
-        X3 = X2 * X
-        C = (1 - 3 * X2 + 2 * X3) - sign * qq * (X - 2 * X2 + X3) * dx
-        Dp = ((-6 * X + 6 * X2) - sign * qq * (1 - 4 * X + 3 * X2) * dx) * sign / dx
-        value = value + tabf * C
-        deriv1 = deriv1 + tabf * Dp
-    zero = jnp.zeros((), dtype)
-    return (
-        jnp.where(ok, value, zero),
-        jnp.where(ok[..., None], deriv1[..., None], zero),
-    )
 
 
 def _shift_corner(arr, corner, periodic):
@@ -109,11 +38,9 @@ def _packed_corner_table(grid):
     2^D interpolation corners, contiguous in the minor axis.
 
     The 2^D-corner lookup then needs ONE gather of a contiguous row per
-    query point instead of (1+D)*2^D scalar gathers — on v5e the XLA
-    gather rate (~0.12 G elem/s) makes the fetch count the entire cost of
-    the multi-dim force pass.  The table is rebuilt inline per call (12
-    lattice rolls for 2-D — ~4x the grid in HBM writes), which is still a
-    large net win for bulk lookups."""
+    query point instead of (1+D)*2^D scalar gathers.  The table is rebuilt
+    inline per call (12 lattice rolls for 2-D — ~4x the grid in memory
+    writes) unless the caller passes a cached one."""
     D = grid.spec.dim
     per = grid.spec.periodic
     parts = []
@@ -162,18 +89,6 @@ def grid_value_deriv(grid, x, packed=None):
         deriv = grid.derivs[gather]
         zero = jnp.zeros((), dtype)
         return jnp.where(ok, value, zero), jnp.where(ok[..., None], deriv, zero)
-
-    # 1-D fast path: XLA per-element gather runs at ~0.12 G elem/s on v5e
-    # while a one-hot x (G, 4) table matmul rides the MXU at ~3.8 G
-    # lookups/s — use it for bulk lookups on small tables (the pairwise-CV
-    # force path: millions of points, a 151-point grid)
-    if (
-        D == 1
-        and grid.derivs is not None
-        and spec.nbins[0] <= 4096
-        and x.size >= 32768
-    ):
-        return _interp1d_matvec(grid, x, ok, xw, idx)
 
     # bulk multi-dim path: one fused-table row gather per point (see
     # _packed_corner_table); bit-identical arithmetic to the scalar-gather
@@ -250,3 +165,30 @@ def grid_value_deriv(grid, x, packed=None):
 
     zero = jnp.zeros((), dtype)
     return jnp.where(ok, value, zero), jnp.where(ok[..., None], deriv, zero)
+
+
+def hermite_1d_f64(values, derivs, lo, dx, x):
+    """float64 NumPy evaluation of the 1-D cubic Hermite interpolant
+    (reference lib/grid.h:95-137) at points ``x`` inside a non-periodic
+    grid: (value, d value/dx).  A plain reference for checking the device
+    lookup's precision; not used by the hosts."""
+    import numpy as np
+
+    values = np.asarray(values, np.float64)
+    derivs = np.asarray(derivs, np.float64)
+    x = np.asarray(x, np.float64)
+    idx = np.floor((x - lo) / dx).astype(int)
+    t = (x - lo - idx * dx) / dx
+    val = np.zeros_like(x)
+    der = np.zeros_like(x)
+    for corner, sign in ((0, 1.0), (1, -1.0)):
+        j = np.minimum(idx + corner, len(values) - 1)
+        f, d = values[j], derivs[j]
+        safe = np.abs(f) >= 1e-7
+        qq = np.where(safe, -d / np.where(safe, f, 1.0), 0.0)
+        X = np.abs(t - corner)
+        C = (1 - 3 * X**2 + 2 * X**3) - sign * qq * (X - 2 * X**2 + X**3) * dx
+        Dp = ((-6 * X + 6 * X**2) - sign * qq * (1 - 4 * X + 3 * X**2) * dx) * sign / dx
+        val += f * C
+        der += f * Dp
+    return val, der

@@ -18,10 +18,9 @@ regression test guards, edm_test.cpp:823), the post-undo cumulative dips
 back *below* the cap and the next hill deposits again; a ``while_loop`` of
 parallel passes handles each crossing (virtually always exactly one pass).
 
-A naive ``lax.scan`` over hills is semantically identical but costs ~40 us
-per element on TPU (sequential scalar iterations) — 80+ ms per hill round at
-the reference's 2048-hill buffer size; the prefix form is a few fused
-cumsum/where passes.
+A naive ``lax.scan`` over hills is semantically identical but runs one
+sequential scalar iteration per hill (2048 per round at the reference's
+buffer size); the prefix form is a few fused cumsum/where passes.
 """
 
 from __future__ import annotations

@@ -1,17 +1,17 @@
-"""Sharded cell-list pairwise EDM — the multi-chip north-star path
-(100k-atom pairwise EDM across a TPU pod slice).
+"""Sharded cell-list pairwise EDM — the multi-device path (100k-atom
+pairwise EDM across several cards).
 
 Decomposition: each device owns a contiguous range of *cells* (a spatial
-domain decomposition, the TPU analog of the reference's MPI subdivision,
+domain decomposition, the analog of the reference's MPI subdivision,
 edm_bias.cpp:98-222) — but where the reference must exchange hills with
 neighbor ranks through a deadlock-free P2P schedule, here positions are
-small enough to all-gather over ICI every step (N*3 floats), each device
+small enough to all-gather every step (N*3 floats), each device
 computes LJ+bias forces for atoms in its own cells against the replicated
 positions, and per-atom forces combine with one psum.  Hill rounds use the
 same per-device collection + gathered replay as parallel/pair.py.
 
 This is halo-free: the "halo" is the replicated position array, which at
-1e5 atoms is 1.2 MB — far cheaper on ICI than the bookkeeping of true
+1e5 atoms is 1.2 MB — far cheaper to move than the bookkeeping of true
 ghost regions, and it keeps every device's bias grid replica bitwise
 identical.
 """
@@ -365,11 +365,11 @@ def make_slab_cell_step(
     mesh,
     **kw,
 ):
-    """Slot-resident slab-sharded cells host — the production multi-chip
+    """Slot-resident slab-sharded cells host — the production multi-device
     force path.
 
     Wraps ``models.pair_edm_cells.make_cell_step`` (same state, same
-    physics, same Pallas Newton kernel) in ``shard_map`` with the force
+    physics, same force pass) in ``shard_map`` with the force
     pass slab-decomposed over the mesh's x-columns (one psum of slot
     forces per step) and — by default — the hill-collection passes
     slab-decomposed the same way (per-device candidate sampling over
@@ -390,7 +390,6 @@ def make_slab_cell_step(
     """
     from ..models.pair_edm_cells import make_cell_step
 
-    kw.setdefault("use_pallas", True)
     collect_records = kw.get("collect_records", False)
     inner = make_cell_step(
         params, lp, lj, spec, hill_stride,
@@ -440,9 +439,10 @@ def make_brick_cell_step(
     plus a one-cell halo ring.  At equal device count the halo fraction
     is ~sum_d 2/w_d instead of the slab's 2/w, and the decomposition
     scales to prod_d p_d ~ nx*ny*nz devices where the 1-D slab saturates
-    at nx.  This is the TPU analog of the reference's 3-D MPI box
-    subdivision (edm_bias.cpp:98-222): lay (px, py) onto a v5e/v6 2-D ICI
-    torus, or (px, py, pz) onto a v4/v5p 3-D torus.
+    at nx.  This is the analog of the reference's 3-D MPI box subdivision
+    (edm_bias.cpp:98-222).  On an all-to-all host (NVLink) the grid shape
+    follows the algorithm alone: choose the (px, py[, pz]) that minimises
+    the halo fraction for the lattice.
 
     ``mesh`` must be a 2-D or 3-D mesh (see parallel.make_brick_mesh);
     pass ``init_cell_state`` state; returns a jitted
@@ -456,7 +456,6 @@ def make_brick_cell_step(
         )
     ndev = tuple(mesh.devices.shape)
     axes = tuple(mesh.axis_names)
-    kw.setdefault("use_pallas", True)
     collect_records = kw.get("collect_records", False)
     inner = make_cell_step(
         params, lp, lj, spec, hill_stride,

@@ -1,8 +1,8 @@
-"""Device-mesh helpers — the TPU stand-in for MPI_COMM_WORLD.
+"""Device-mesh helpers — the stand-in for MPI_COMM_WORLD.
 
 The reference's communicator bootstrap (MPI_Comm_rank/size,
 edm_bias.cpp:63-66) maps to a 1-D ``jax.sharding.Mesh`` over the data
-axis; collectives ride ICI via psum/all_gather inside shard_map.
+axis; collectives are psum/all_gather inside shard_map.
 """
 
 from __future__ import annotations
@@ -30,11 +30,9 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = DATA_AXIS) -> Mesh:
 def make_brick_mesh(
     px: int, py: int, pz: Optional[int] = None, axes: Optional[tuple] = None
 ) -> Mesh:
-    """(px, py[, pz]) device grid for brick decomposition — on real
-    hardware lay the logical grid onto the physical ICI torus (v5e/v6
-    slices are 2-D tori -> (px, py); v4/v5p pods are 3-D tori -> a
-    (px, py, pz) grid keeps halo/psum traffic on nearest-neighbor links
-    in all three directions)."""
+    """(px, py[, pz]) device grid for brick decomposition.  The cards of
+    one host are joined all to all, so the shape follows the algorithm
+    (halo fraction per device) and not the wiring."""
     shape = (px, py) if pz is None else (px, py, pz)
     if axes is None:
         axes = (BRICK_X_AXIS, BRICK_Y_AXIS, BRICK_Z_AXIS)[: len(shape)]

@@ -1,4 +1,4 @@
-"""Sharded pairwise EDM — the TPU-native replacement for the reference's MPI
+"""Sharded pairwise EDM — the JAX replacement for the reference's MPI
 scale-out of ``fix edm_pair``.
 
 Reference topology (SURVEY.md §2): every rank holds a *replicated* 1-D bias
@@ -9,10 +9,10 @@ hill_density/hill_prefactor by mpi_size (edm_bias.cpp:173-180); cum_bias is
 an Allreduce (edm_bias.cpp:922-931); the deadlock-free P2P schedule
 (edm_bias.cpp:795-920) exists only because MPI point-to-point can deadlock.
 
-TPU mapping under ``shard_map`` over a 1-D mesh:
+Mapping under ``shard_map`` over a 1-D mesh:
   - atoms are sharded over the mesh (the O(N^2/n_dev) force pass is the
     actual bottleneck and parallelizes perfectly);
-  - positions are all-gathered for the pair math (N*3 floats — cheap on ICI);
+  - positions are all-gathered for the pair math (N*3 floats — cheap);
   - each device's candidate hills are its local *ordered* pairs (i local),
     which reproduces the reference's one-hill-per-direction rule exactly;
   - accepted hills are compacted locally then all-gathered, and every device

@@ -1,4 +1,4 @@
-"""Spatially-sharded coordinate-CV EDM — the TPU-native analog of the
+"""Spatially-sharded coordinate-CV EDM — the JAX analog of the
 reference's MPI domain decomposition (edm_bias.cpp:98-222, hill exchange
 :614-920) for bias grids too large (or hill loads too heavy) for a
 replicated grid.

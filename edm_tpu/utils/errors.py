@@ -1,8 +1,8 @@
-"""Error base — TPU-native equivalent of the reference's ``edm_error``
+"""Error base — JAX equivalent of the reference's ``edm_error``
 (reference lib/edm.cpp:4-7 prints ``[EDM:location] msg`` and aborts).
 
 Host-side configuration errors raise ``EDMError``; in-jit invariants use
-masks/flags checked by the host (aborting inside a compiled TPU program is
+masks/flags checked by the host (aborting inside a compiled device program is
 not possible, and is a design smell anyway).
 """
 

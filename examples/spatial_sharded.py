@@ -1,12 +1,13 @@
-"""Spatially-sharded coordinate EDM across a device mesh — the TPU-native
+"""Spatially-sharded coordinate EDM across a device mesh — the JAX
 form of the reference's MPI domain decomposition (one bias-grid shard per
 device, hills exchanged via all_gather, cum_bias via psum).
 
-Run on any machine: uses an 8-device virtual CPU mesh when fewer real
-devices are present.
+Runs on the CPU by default, on an 8-device virtual mesh:
 
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
-        python examples/spatial_sharded.py
+    python examples/spatial_sharded.py
+
+On a machine with several GPUs, ``JAX_PLATFORMS=cuda`` runs it on the
+cards instead (the mesh takes up to 8 of them).
 """
 
 import os
@@ -16,15 +17,9 @@ if "host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
         os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
     ).strip()
 
-import jax
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-# force the host platform BEFORE any backend touch when no multi-device
-# hardware is available (on images that pin jax_platforms programmatically,
-# env vars alone do not select the CPU backend)
-try:
-    jax.config.update("jax_platforms", "cpu")
-except Exception:
-    pass
+import jax
 
 import numpy as np
 

@@ -1,8 +1,7 @@
 """Weak-scaling proxy for the sharded cell hosts on the virtual CPU mesh.
 
-Real multi-chip hardware is unavailable in this environment, and the CPU
-"mesh" time-slices ONE physical core across its virtual devices — wall-clock
-speedup is therefore unmeasurable here.  What IS measurable and meaningful:
+The CPU "mesh" time-slices one physical core across its virtual devices,
+so wall-clock speedup is not measurable with it.  What it does measure:
 
 1. **Per-device work balance**: the decomposition's cells-per-device
    spread (asserted <= one column per sharded axis), which on real
@@ -10,26 +9,22 @@ speedup is therefore unmeasurable here.  What IS measurable and meaningful:
 2. **Aggregate-work overhead**: T(n devices, n x work) / (n * T(1 device,
    1 x work)).  On a single core every device's compute serializes, so this
    ratio isolates the *extra* work the sharded program does per device
-   (halo columns, collectives, credit exchange, replicated hill rounds) —
-   exactly the terms that erode weak scaling on a real pod slice, minus the
-   ICI bandwidth term (modeled separately in docs/perf.md).
+   (halo cells, collectives, replicated hill rounds) — the terms that
+   erode weak scaling on real hardware, minus interconnect time.
 
 All three decompositions are measured: the 1-D slab (per-device
 x-columns), the 2-D brick (x-range x y-range bricks) and the 3-D brick
-((2,2,2) grid — the v4/v5p 3-D-torus layout).  Since the OWNED-ROW
-kernel (r05: `newton_lattice_force(..., row_box=...)` runs kernel row
-programs only over the device's owned cell sub-box) the halo ring costs
-no row-side compute — it survives only as candidate lanes (constant
-width) and psum payload — so every decomposition's aggregate overhead
-is deeply NEGATIVE at these toy widths.  The bricks' value over the
-slab: they keep scaling past n = nx devices where the slab saturates
-(see docs/perf.md for the v5e-32 model).
+((2,2,2) grid).  The force pass runs rows only over the device's owned
+cell sub-box (``row_box``), so the halo ring costs no row-side compute —
+it survives only as candidate cells and psum payload.  The bricks' value
+over the slab: they keep scaling past n = nx devices where the slab
+saturates.
 
 With the sharded floor (shard_floor, default on) the fixed-shape global
 costs (the pass-2/extraction row budget, the thermostat draw) split per
-device instead of replicating — at 512 atoms/device that saving is what
-drives the overhead negative.  See docs/perf.md for the decomposition
-and the historical floor-off / pre-owned-row comparison rows.
+device instead of replicating.
+
+These are CPU-mesh numbers: they describe work, not device time.
 
 Run: python examples/weak_scaling_cpu_mesh.py  (forces an 8-device CPU mesh)
 Prints one JSON line per configuration.
@@ -46,11 +41,6 @@ if "host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
 os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax
-
-try:
-    jax.config.update("jax_platforms", "cpu")
-except Exception:
-    pass
 
 import numpy as np
 import jax.numpy as jnp
@@ -98,7 +88,7 @@ def run(n_dev: int, grid=None):
         bias_state, jnp.asarray(pts, jnp.float32), jax.random.PRNGKey(0),
         n_est=n_atoms * 20, pair_lookup="chebyshev", cheb_deg=16, cheb_panels=4,
     )
-    state = init_cell_state(spec, core, with_ids=False)
+    state = init_cell_state(spec, core)
     kw = dict(hill_stride=10, rebuild_stride=10, energy_stride=10)
     lp = LangevinParams(dt=0.002, friction=1.0, kT=0.8)
     cols = []

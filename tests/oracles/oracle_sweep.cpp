@@ -46,7 +46,7 @@ struct Cfg {
   // Python binding's add_hill pattern, python/edm/edm/__init__.py:4-8).
   // Required for exact pins when well-tempering is active: within a
   // multi-hill round the reference tempers each hill against the live
-  // grid including same-round deposits, which the TPU engine relaxes to
+  // grid including same-round deposits, which the JAX engine relaxes to
   // the round-start grid (README "Parity with the reference") — at
   // round size 1 the two are identical.  est is the est_hill_count
   // passed to pre_add_hill either way (the reference hosts pass the

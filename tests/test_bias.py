@@ -14,7 +14,9 @@ from edm_tpu import bias as B
 from edm_tpu.api import EDMBias
 from edm_tpu.utils.config import parse_edm_file, parse_edm_text
 
-SANITY = "/root/reference/tests/sanity.edm"
+import pathlib
+
+SANITY = str(pathlib.Path(__file__).parent / "fixtures" / "sanity.edm")
 
 
 def test_edm_bias_reader(fixture_dir):

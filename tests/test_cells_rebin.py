@@ -25,7 +25,7 @@ def _setup(n=500, seed=0, cap=None):
     x = jnp.asarray(rng.uniform(0, 12.0, (n, 3)))
     t = build_table(spec, x)
     assert not bool(t.overflow)
-    Cg = spec.n_cells  # no program padding needed for the unit test
+    Cg = spec.n_cells
     aid_g = t.aid
     # slot positions
     aid_c = jnp.clip(aid_g, 0, n - 1)
@@ -63,7 +63,7 @@ def test_incremental_rebin_moves_crossers():
                 moved += 1
     xs2 = jnp.asarray(xs_np)
 
-    plan = plan_incremental_rebin(spec, Cg, aid_g, xs2, mover_cap=256)
+    plan = plan_incremental_rebin(spec, aid_g, xs2, mover_cap=256)
     assert bool(plan.feasible)
     n_mov = int(plan.n_movers)
     assert 0 < n_mov <= moved
@@ -107,9 +107,7 @@ def test_incremental_rebin_swap_at_full_occupancy():
     xs_np[b_cell, b_slot, 0] -= 3.0
     xs2 = jnp.asarray(xs_np)
 
-    plan = plan_incremental_rebin(
-        spec, spec.n_cells, aid_g, xs2, mover_cap=64
-    )
+    plan = plan_incremental_rebin(spec, aid_g, xs2, mover_cap=64)
     assert bool(plan.feasible)
     assert int(plan.n_movers) == 2
     aid_new, (xs_new,) = apply_incremental_rebin(
@@ -123,7 +121,7 @@ def test_incremental_rebin_infeasible_detected():
     spec, Cg, x, aid_g, xs = _setup(n=500, seed=3)
     xs_np = np.array(xs)
     xs_np[..., 0] += spec.edge[0]  # EVERY atom crosses
-    plan = plan_incremental_rebin(spec, Cg, aid_g, jnp.asarray(xs_np), mover_cap=16)
+    plan = plan_incremental_rebin(spec, aid_g, jnp.asarray(xs_np), mover_cap=16)
     assert not bool(plan.feasible)
     assert int(plan.n_movers) > 16
 

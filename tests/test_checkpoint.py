@@ -104,7 +104,7 @@ def test_sharded_host_resume_bitwise(tmp_path):
             bias_state, jnp.asarray(pts, jnp.float32), jax.random.PRNGKey(0),
             pair_lookup="chebyshev", cheb_deg=16, cheb_panels=4,
         )
-        st = init_cell_state(spec, core, with_ids=False)
+        st = init_cell_state(spec, core)
         step = make_slab_cell_step(
             params, LangevinParams(dt=0.002, friction=1.0, kT=0.8),
             LJParams(), spec, hill_stride=2, mesh=make_mesh(8),

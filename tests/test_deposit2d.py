@@ -1,4 +1,4 @@
-"""Separable MXU 2-D deposition (ops/deposit.dense_tables_2d), used by
+"""Separable matmul 2-D deposition (ops/deposit.dense_tables_2d), used by
 add_hills_round on fully-periodic 2-D grids.
 
 Divergence (README ledger): per-dim square support instead of the

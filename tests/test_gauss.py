@@ -269,34 +269,6 @@ def test_deposit_linearity_matches_sequential():
     )
 
 
-def test_pallas_deposit_matches_dense():
-    """The Pallas dense-deposition kernel (interpret mode on CPU) matches
-    the XLA dense path bit-closely on a periodic 1-D grid."""
-    import jax
-
-    from edm_tpu.ops.deposit import deposit_dense_1d
-    from edm_tpu.ops.deposit_pallas import deposit_dense_1d_pallas, supported
-
-    g = GaussGrid.create([0], [10], [0.002], [True], [0.05], dtype=jnp.float32)
-    assert supported(g)
-    rng = np.random.default_rng(9)
-    centers = jnp.asarray(rng.uniform(0, 10, (64, 1)), jnp.float32)
-    heights = jnp.asarray(rng.uniform(0.1, 1.0, (64,)), jnp.float32)
-
-    g_x, added_x = deposit_dense_1d(g, centers, heights)
-    g_p, added_p = deposit_dense_1d_pallas(g, centers, heights, interpret=True)
-
-    np.testing.assert_allclose(
-        np.asarray(added_p), np.asarray(added_x), rtol=2e-5, atol=1e-7
-    )
-    np.testing.assert_allclose(
-        np.asarray(g_p.grid.values), np.asarray(g_x.grid.values), rtol=2e-5, atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(g_p.grid.derivs), np.asarray(g_x.grid.derivs), rtol=2e-4, atol=1e-4
-    )
-
-
 def test_gauss_grid_from_file(tmp_path, fixture_dir):
     """read_gauss_grid parity (gaussian_grid.cpp:20-33): rebuild from a grid
     file with sigma supplied; deposition continues on the restored surface."""
@@ -314,31 +286,3 @@ def test_gauss_grid_from_file(tmp_path, fixture_dir):
     # deposition continues with the supplied sigma
     g1b, added = g1.add_value(jnp.array([[6.0]], jnp.float32), jnp.array([0.5], jnp.float32))
     assert abs(float(added[0]) - 0.5) < 1e-2
-
-
-def test_pallas_windowed_deposit_matches_dense():
-    """The support-windowed Pallas deposition kernel (interpret mode on
-    CPU) matches the XLA dense path on a periodic 1-D grid, including
-    hills whose windows wrap the periodic boundary (margin fold-back).
-    Grid avoids knife-edge support radii (4*sigma/dx non-integer)."""
-    from edm_tpu.ops.deposit import deposit_dense_1d
-    from edm_tpu.ops.deposit_pallas import deposit_windowed_1d_pallas, supported
-
-    G, sig = 65536, 0.0293170
-    dx = 10.0 / G
-    g = GaussGrid.create([0], [10], [dx], [True], [sig], dtype=jnp.float32)
-    assert supported(g)
-    rng = np.random.default_rng(3)
-    c = jnp.asarray(
-        np.concatenate([rng.uniform(0, 10, (30,)), [0.001, 9.999, 0.05]])[:, None],
-        jnp.float32,
-    )
-    h = jnp.asarray(rng.uniform(0.01, 0.2, (33,)), jnp.float32)
-    gw, aw = deposit_windowed_1d_pallas(g, c, h, interpret=True)
-    gd, ad = deposit_dense_1d(g, c, h)
-    vs = float(jnp.max(jnp.abs(gd.grid.values)))
-    ds = float(jnp.max(jnp.abs(gd.grid.derivs)))
-    assert float(jnp.max(jnp.abs(gw.grid.values - gd.grid.values))) < 1e-4 * vs
-    assert float(jnp.max(jnp.abs(gw.grid.derivs - gd.grid.derivs))) < 3e-4 * ds
-    # conservation: per-hill integrals match tightly
-    np.testing.assert_allclose(np.asarray(aw), np.asarray(ad), atol=2e-6)

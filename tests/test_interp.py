@@ -103,9 +103,9 @@ def test_out_of_grid_returns_zero():
 
 
 def test_matvec_lookup_bitwise_matches_gather():
-    """The 1-D one-hot-matmul fast path (ops/interp._interp1d_matvec,
-    engaged for bulk lookups) must reproduce the gather path bitwise —
-    same polynomial, same qq guard, exact one-hot selection."""
+    """A bulk 1-D lookup (>= 32768 points, the size that used to switch
+    to a one-hot matmul fetch) is bitwise the same lookup done in small
+    chunks: one gather path, whatever the batch size."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -118,7 +118,7 @@ def test_matvec_lookup_bitwise_matches_gather():
             jnp.asarray(rng.uniform(0.2, 2.8, (30, 1))), jnp.full(30, 0.3)
         )
         xs = jnp.asarray(rng.uniform(-0.5, 3.5, (40000, 1)))
-        vb, db = g.grid.get_value_deriv(xs)  # >= 32768 points -> matvec
+        vb, db = g.grid.get_value_deriv(xs)
         parts = [g.grid.get_value_deriv(xs[i : i + 1000]) for i in range(0, 40000, 1000)]
         vg = jnp.concatenate([p[0] for p in parts])
         dg = jnp.concatenate([p[1] for p in parts])

@@ -11,7 +11,9 @@ from edm_tpu.models import coord_edm
 from edm_tpu.models.langevin import LangevinParams
 from edm_tpu.utils.config import parse_edm_file
 
-SANITY = "/root/reference/tests/sanity.edm"
+import pathlib
+
+SANITY = str(pathlib.Path(__file__).parent / "fixtures" / "sanity.edm")
 
 
 def test_single_particle_langevin_edm():
@@ -275,26 +277,16 @@ def test_pair_type_filtering():
 
 
 @pytest.mark.slow
-def test_cell_host_type_filtering_pallas_matches_xla(monkeypatch):
-    """Type-filtered runs through the Newton Pallas kernel (cached slot-type
-    planes masking only the CV term) reproduce the XLA typed path — the rdf
-    type pair is a first-class fix_edm_pair argument and must not lose the
-    kernel fast path (fix_edm_pair.cpp:39-44,177-202)."""
-    import jax.experimental.pallas as pl
-    import edm_tpu.ops.cellforce_pallas as M
+def test_cell_host_type_filtering_pallas_matches_xla(triton_interpret):
+    """Type-filtered runs through the Triton force kernel (interpret mode;
+    slot types masking only the CV term) reproduce the XLA typed path — the
+    rdf type pair is a first-class fix_edm_pair argument and must not lose
+    the kernel path (fix_edm_pair.cpp:39-44,177-202)."""
     from edm_tpu.models import pair_edm
     from edm_tpu.models.cells import CellSpec
     from edm_tpu.models.pair_edm_cells import init_cell_state, make_cell_step
     from edm_tpu.models.lj import LJParams
     from edm_tpu.utils.config import parse_edm_text
-
-    orig = pl.pallas_call
-
-    def interp_call(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(M.pl, "pallas_call", interp_call)
 
     cfg = parse_edm_text(
         "tempering 0\nhill_prefactor 0.1\nbias_per_step 10.0\nhill_density 40\n"
@@ -326,18 +318,17 @@ def test_cell_host_type_filtering_pallas_matches_xla(monkeypatch):
     core = dc.replace(
         core, bias=dc.replace(core.bias, bias=bias2), cheb=fit_gauss_grid(bias2, 64)
     )
-    cst = init_cell_state(spec, core, types=types)
-    assert cst.ts is not None
+    cst = init_cell_state(spec, core)
 
-    def run(use_pallas):
+    def run(force_impl):
         step = make_cell_step(
             params, lp, LJParams(), spec, hill_stride=1,
-            types=types, type_pair=(1, 2), use_pallas=use_pallas,
+            types=types, type_pair=(1, 2), force_impl=force_impl,
         )
         return step(cst, None)[0]
 
-    s_xla = run(False)
-    s_pal = run(True)
+    s_xla = run("xla")
+    s_pal = run("triton")
     np.testing.assert_allclose(
         np.asarray(s_pal.xs), np.asarray(s_xla.xs), rtol=1e-5, atol=1e-6
     )
@@ -356,33 +347,22 @@ def test_cell_host_type_filtering_pallas_matches_xla(monkeypatch):
     core_all = dc.replace(core, cheb=core.cheb)
     cst_all = init_cell_state(spec, core_all)
     step_all = make_cell_step(
-        params, lp, LJParams(), spec, hill_stride=1, use_pallas=True
+        params, lp, LJParams(), spec, hill_stride=1, force_impl="triton"
     )
     s_all = step_all(cst_all, None)[0]
     assert 0 < int(s_pal.core.last_calls) < int(s_all.core.last_calls)
 
 
 @pytest.mark.slow
-def test_pallas_interp_exact_matches_xla(monkeypatch):
-    """pair_lookup='interp' through the Newton kernel: the in-kernel
+def test_pallas_interp_exact_matches_xla(triton_interpret):
+    """pair_lookup='interp' through the Triton kernel: the in-kernel
     HermiteTable fetch reproduces the XLA exact cubic-Hermite lookup
-    (reference lib/grid.h:95-137) — the bit-parity fallback path users
-    take when they distrust the spectral approximation."""
-    import jax.experimental.pallas as pl
-    import edm_tpu.ops.cellforce_pallas as M
+    (reference lib/grid.h:95-137)."""
     from edm_tpu.models import pair_edm
     from edm_tpu.models.cells import CellSpec
     from edm_tpu.models.pair_edm_cells import init_cell_state, make_cell_step
     from edm_tpu.models.lj import LJParams
     from edm_tpu.utils.config import parse_edm_text
-
-    orig = pl.pallas_call
-
-    def interp_call(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(M.pl, "pallas_call", interp_call)
 
     cfg = parse_edm_text(
         "tempering 0\nhill_prefactor 0.1\nbias_per_step 1.0\nhill_density 20\n"
@@ -413,11 +393,11 @@ def test_pallas_interp_exact_matches_xla(monkeypatch):
 
     s_xla, _ = make_cell_step(params, lp, LJParams(), spec, hill_stride=10**6)(cst, None)
     s_pal, _ = make_cell_step(
-        params, lp, LJParams(), spec, hill_stride=10**6, use_pallas=True
+        params, lp, LJParams(), spec, hill_stride=10**6, force_impl="triton"
     )(cst, None)
-    # same exact table; the kernel computes r via rsqrt (vs sqrt in XLA),
-    # so a pair's interval index can differ by an ULP at interval edges —
-    # force tolerance matches the cheb-kernel parity test
+    # same exact table and the same sqrt for r (so interval indices and the
+    # LJ cutoff test agree); 1/r comes from rsqrt in the kernel — force
+    # tolerance matches the cheb-kernel parity test
     np.testing.assert_allclose(
         np.asarray(s_pal.xs), np.asarray(s_xla.xs), rtol=1e-5, atol=1e-6
     )
@@ -430,7 +410,7 @@ def test_pallas_interp_exact_matches_xla(monkeypatch):
     )
     # and a hill round keeps working (no cheb refit on the interp path)
     s2, _ = make_cell_step(
-        params, lp, LJParams(), spec, hill_stride=1, use_pallas=True
+        params, lp, LJParams(), spec, hill_stride=1, force_impl="triton"
     )(cst, None)
     assert s2.core.cheb is None
     assert float(s2.core.bias.cum_bias) > 0
@@ -480,25 +460,62 @@ def test_cell_host_type_filtering():
     assert 0 < int(st_f.core.last_calls) < int(st_a.core.last_calls)
 
 
-@pytest.mark.slow
-def test_pallas_cell_force_matches_xla(monkeypatch):
-    """The fused Pallas cell-force kernel (interpret mode on CPU) produces
-    the identical trajectory to the XLA cell path."""
-    import jax.experimental.pallas as pl
-    import edm_tpu.ops.cellforce_pallas as M
+def test_cell_host_typed_candidates_match_dense():
+    """The cell host's type-filtered hill collection (27-stencil tiles)
+    counts the same ordered cross-type candidates as the dense host at
+    the same positions (dt = 0 keeps the atoms in place)."""
     from edm_tpu.models import pair_edm
     from edm_tpu.models.cells import CellSpec
     from edm_tpu.models.pair_edm_cells import init_cell_state, make_cell_step
     from edm_tpu.models.lj import LJParams
     from edm_tpu.utils.config import parse_edm_text
 
-    orig = pl.pallas_call
+    cfg = parse_edm_text(
+        "tempering 0\nhill_prefactor 0.1\nbias_per_step 10.0\nhill_density 40\n"
+        "dimension 1\nbox_low 0\nbox_high 3.0\nbias_spacing 0.02\nbias_sigma 0.1\n"
+    )
+    params, state = B.subdivide(
+        cfg, 1.0, 1.0, [0], [3.0], [0], [3.0], [False], [0], dtype=jnp.float32
+    )
+    side, a = 8, 1.26
+    pts = (
+        np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        * a + 0.5 * a
+    )
+    pts = pts + np.random.default_rng(3).uniform(-0.2, 0.2, pts.shape)
+    box = [side * a] * 3
+    types = np.ones(len(pts), np.int32)
+    types[::3] = 2
+    still = LangevinParams(dt=0.0, friction=0.0, kT=0.0)
+    core = pair_edm.init_state(
+        state, jnp.asarray(pts, jnp.float32), jax.random.PRNGKey(0),
+        pair_lookup="chebyshev",
+    )
+    spec = CellSpec.create(box, cutoff=3.0, n_atoms=len(pts))
+    assert min(spec.ncells) >= 3
+    cell_step = make_cell_step(
+        params, still, LJParams(), spec, hill_stride=1, types=types,
+        type_pair=(1, 2), hill_capacity=8192, row_cap=4096,
+    )
+    st_c, _ = cell_step(init_cell_state(spec, core), None)
+    dense_step = pair_edm.make_step(
+        params, still, LJParams(), box, hill_stride=1, hill_capacity=8192,
+        types=types, type_pair=(1, 2),
+    )
+    st_d, _ = dense_step(core, None)
+    assert not bool(st_c.core.hills_truncated)
+    assert int(st_c.core.last_calls) == int(st_d.last_calls) > 0
 
-    def interp_call(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
 
-    monkeypatch.setattr(M.pl, "pallas_call", interp_call)
+@pytest.mark.slow
+def test_pallas_cell_force_matches_xla(triton_interpret):
+    """The Triton cell-force kernel (interpret mode on CPU) produces the
+    same trajectory as the XLA cell path."""
+    from edm_tpu.models import pair_edm
+    from edm_tpu.models.cells import CellSpec
+    from edm_tpu.models.pair_edm_cells import init_cell_state, make_cell_step
+    from edm_tpu.models.lj import LJParams
+    from edm_tpu.utils.config import parse_edm_text
 
     cfg = parse_edm_text(
         "tempering 0\nhill_prefactor 0.1\nbias_per_step 1.0\nhill_density 20\n"
@@ -531,30 +548,28 @@ def test_pallas_cell_force_matches_xla(monkeypatch):
     cst = dc.replace(cst, core=core2)
 
     s_xla, _ = make_cell_step(params, lp, LJParams(), spec, hill_stride=10**6)(cst, None)
-    # use_pallas=True is the half-stencil Newton kernel; "full" the 27-stencil
-    for variant in (True, "full"):
-        s_pal, _ = make_cell_step(
-            params, lp, LJParams(), spec, hill_stride=10**6, use_pallas=variant
-        )(cst, None)
-        np.testing.assert_allclose(
-            np.asarray(s_pal.xs), np.asarray(s_xla.xs), rtol=1e-5, atol=1e-6
-        )
-        # forces include the step's fresh force pass: f32 reorder noise only
-        scale = np.abs(np.asarray(s_xla.fs)).max()
-        np.testing.assert_allclose(
-            np.asarray(s_pal.fs), np.asarray(s_xla.fs), atol=1e-4 * max(scale, 1.0)
-        )
-        assert abs(float(s_pal.core.energy) - float(s_xla.core.energy)) < 1e-3 * max(
-            1.0, abs(float(s_xla.core.energy))
-        )
+    s_pal, _ = make_cell_step(
+        params, lp, LJParams(), spec, hill_stride=10**6, force_impl="triton"
+    )(cst, None)
+    np.testing.assert_allclose(
+        np.asarray(s_pal.xs), np.asarray(s_xla.xs), rtol=1e-5, atol=1e-6
+    )
+    # forces include the step's fresh force pass: f32 reorder noise only
+    scale = np.abs(np.asarray(s_xla.fs)).max()
+    np.testing.assert_allclose(
+        np.asarray(s_pal.fs), np.asarray(s_xla.fs), atol=1e-4 * max(scale, 1.0)
+    )
+    assert abs(float(s_pal.core.energy) - float(s_xla.core.energy)) < 1e-3 * max(
+        1.0, abs(float(s_xla.core.energy))
+    )
 
     # energy_stride: identical dynamics, energy recomputed on the stride
     # only (der-only kernel in between) and carried through skipped steps
     step1 = make_cell_step(
-        params, lp, LJParams(), spec, hill_stride=10**6, use_pallas=True
+        params, lp, LJParams(), spec, hill_stride=10**6, force_impl="triton"
     )
     step2 = make_cell_step(
-        params, lp, LJParams(), spec, hill_stride=10**6, use_pallas=True,
+        params, lp, LJParams(), spec, hill_stride=10**6, force_impl="triton",
         energy_stride=2,
     )
     sa, sb = cst, cst
@@ -643,7 +658,7 @@ def test_coord_hill_compaction_matches_full_batch():
 
 
 def test_coord_hill_passes_spill_instead_of_truncate():
-    """Never-drop rounds (VERDICT r3 item 4): a hill_capacity smaller than
+    """Never-drop rounds: a hill_capacity smaller than
     the acceptance load truncates single-pass rounds (drops hills, sets the
     sticky flag — biased sampling, the failure mode the reference's
     mid-round flush avoids, edm_bias.cpp:459-462); with
@@ -812,179 +827,3 @@ def test_half_tile_hill_collection_census():
     hv = np.sort(hills[hills > 0])
     np.testing.assert_allclose(hv, np.sort(np.concatenate([bf, bf])), rtol=1e-6)
     assert not bool(st2.core.hills_truncated)
-
-
-def test_hermite_gather_fetch_bitwise():
-    """The per-lane-gather Hermite coefficient fetch is BITWISE the
-    replaced unrolled select-accumulate fetch: a gather returns the table
-    entry itself, and the accumulate summed exactly one m=1 term over
-    zeros.  Covers multi-segment G (151 -> 2 gather segments + select),
-    single-segment G, full-width 128 chunks plus the 64-lane remainder of
-    the production width 14*cap, and both energy modes."""
-    from edm_tpu.ops import cellforce_pallas as M
-
-    def old_fetch(tab, r, ok, geom, energy):
-        _, G, glo, gdx, ghi_eff, blo, bhi = geom
-        okr = (r >= blo) & (r <= bhi) & (r >= glo) & (r < ghi_eff)
-        cv_on = jnp.where(okr, ok, 0.0)
-        idxf = jnp.clip(jnp.floor((r - glo) / gdx), 0.0, float(G - 1))
-        t = (r - glo - idxf * gdx) / gdx
-        a0 = jnp.zeros_like(r); b0 = jnp.zeros_like(r)
-        c0 = jnp.zeros_like(r); d0 = jnp.zeros_like(r)
-        for g in range(G):
-            m = jnp.where(idxf == float(g), 1.0, 0.0)
-            if energy:
-                a0 = a0 + m * tab[0, g]
-            b0 = b0 + m * tab[1, g]
-            c0 = c0 + m * tab[2, g]
-            d0 = d0 + m * tab[3, g]
-        der = (b0 + t * (c0 + t * d0)) * cv_on
-        val = (
-            a0 + (t * gdx) * (b0 + t * (0.5 * c0 + (1.0 / 3.0) * (t * d0)))
-        ) * cv_on if energy else None
-        return val, der
-
-    rng = np.random.default_rng(0)
-    for G, cap, W in [(151, 32, 448), (100, 8, 112), (256, 16, 256)]:
-        GP = -(-G // 128) * 128
-        tab = np.zeros((4, GP), np.float32)
-        tab[:, :G] = rng.standard_normal((4, G)).astype(np.float32)
-        glo, gdx = 0.0, 0.02
-        ghi_eff = np.float32(gdx * G) - np.float32(gdx)
-        geom = ("hermite", G, glo, gdx, float(ghi_eff), 0.0, float(gdx * G))
-        r = rng.uniform(-0.1, gdx * G + 0.1, (cap, W)).astype(np.float32)
-        ok = (rng.uniform(size=(cap, W)) > 0.2).astype(np.float32)
-        tabj = jnp.asarray(tab)
-        S = GP // 128
-        preload = [
-            [tabj[c, 128 * s : 128 * (s + 1)].reshape(1, 128) for s in range(S)]
-            for c in range(4)
-        ]
-        for energy in (True, False):
-            val_n, der_n, _ = M._hermite_val_der(
-                jnp.asarray(r), jnp.asarray(ok), geom=geom, energy=energy,
-                preload=preload,
-            )
-            val_o, der_o = old_fetch(tabj, jnp.asarray(r), jnp.asarray(ok),
-                                     geom, energy)
-            np.testing.assert_array_equal(np.asarray(der_n), np.asarray(der_o))
-            if energy:
-                np.testing.assert_array_equal(np.asarray(val_n), np.asarray(val_o))
-
-
-def test_newton_kernel_tail_slot_holes(monkeypatch):
-    """Incremental rebins fill the LOWEST holes first, so a cell's
-    occupied slots need not be prefix-contiguous (models/cells.
-    plan_incremental_rebin): an atom can sit in a tail slot past the
-    cell's atom count.  The occupancy-gated row chunks must gate on the
-    highest occupied slot + 1 — a count-based gate silently zeroes the
-    tail atom's row force while partner cells still see it as a
-    candidate, a one-sided force that pumps energy until the state goes
-    non-finite (observed on the 100k TPU bench).  Pins both Newton
-    kernels: packed layout vs the same atoms with one tail-slot hole per
-    cell must give identical per-atom forces."""
-    import jax.experimental.pallas as pl
-    import edm_tpu.ops.cellforce_pallas as M
-    from edm_tpu.models.lj import LJParams
-    from edm_tpu.models.pair_edm_cells import (
-        _half_concat,
-        _planar_coord_views,
-        newton_lattice_force,
-    )
-
-    orig = pl.pallas_call
-
-    def interp_call(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(M.pl, "pallas_call", interp_call)
-
-    rng = np.random.default_rng(11)
-    ncells = (4, 4, 4)
-    cap = 16
-    C = 64
-    edge = 1.3
-    box = (4 * edge, 4 * edge, 4 * edge)
-    lj = LJParams(epsilon=1.0, sigma=0.9, rcut=1.25)
-
-    # synthetic exact-interp table over the full r range
-    G = 140
-    GP = -(-G // 128) * 128
-    gdx = 0.02
-    tab = np.zeros((4, GP), np.float32)
-    tab[:, :G] = 0.1 * rng.standard_normal((4, G)).astype(np.float32)
-    ghi_eff = float(np.float32(gdx * G) - np.float32(gdx))
-    table = M.HermiteTable(
-        tab=jnp.asarray(tab),
-        geom=("hermite", G, 0.0, gdx, ghi_eff, 0.0, float(gdx * G)),
-    )
-
-    # packed layout: occ atoms in slots 0..occ-1, jittered sub-grid per
-    # cell (keeps min separation away from the r2 clamp)
-    occs = rng.integers(2, 10, C)
-    xs_p = np.zeros((C, cap, 3), np.float32)
-    mc_p = np.zeros((C, cap), np.float32)
-    sub = np.stack(np.meshgrid(*[np.arange(3)] * 3, indexing="ij"), -1)
-    sub = sub.reshape(-1, 3) * (edge / 3.0) + edge / 6.0  # 27 sites
-    for c in range(C):
-        ci, cj, ck = c // 16, (c // 4) % 4, c % 4
-        corner = np.array([ci, cj, ck], np.float32) * edge
-        sites = rng.permutation(27)[: occs[c]]
-        pts = sub[sites] + rng.uniform(-0.05, 0.05, (occs[c], 3))
-        xs_p[c, : occs[c]] = corner + pts
-        mc_p[c, : occs[c]] = 1.0
-
-    # hole layout: the last atom of every cell moves to slot cap-1
-    xs_h = xs_p.copy()
-    mc_h = mc_p.copy()
-    for c in range(C):
-        o = int(occs[c])
-        xs_h[c, cap - 1] = xs_h[c, o - 1]
-        xs_h[c, o - 1] = 0.0
-        mc_h[c, cap - 1] = 1.0
-        mc_h[c, o - 1] = 0.0
-
-    def atom_forces(f, mc):
-        # (C, cap, 3) slot forces -> per-atom list in (cell, slot) order
-        out = []
-        for c in range(C):
-            for s in range(cap):
-                if mc[c, s] > 0:
-                    out.append(np.asarray(f)[c, s])
-        return np.stack(out)
-
-    # planar kernel (slab/brick hosts' path)
-    e_p, f_p = newton_lattice_force(
-        jnp.asarray(xs_p), jnp.asarray(mc_p), jnp.asarray(mc_p),
-        ncells, cap, box, lj, table,
-    )
-    e_h, f_h = newton_lattice_force(
-        jnp.asarray(xs_h), jnp.asarray(mc_h), jnp.asarray(mc_h),
-        ncells, cap, box, lj, table,
-    )
-    a_p, a_h = atom_forces(f_p, mc_p), atom_forces(f_h, mc_h)
-    # the tail atom is the LAST occupied slot of its cell in both
-    # layouts, so (cell, slot)-order atom lists correspond 1:1
-    scale = max(1.0, np.abs(a_p).max())
-    np.testing.assert_allclose(a_h, a_p, atol=2e-4 * scale)
-    assert abs(float(e_h) - float(e_p)) < 1e-3 * max(1.0, abs(float(e_p)))
-
-    # rescredit kernel (single-device host's path)
-    def rc(xs, mc):
-        xc_f, xn_f = _planar_coord_views(jnp.asarray(xs), ncells, cap, C)
-        mn_f = _half_concat(jnp.asarray(mc), ncells, cap, C)
-        fx, fy, fz, eb = M.cell_forces_pallas_newton_rescredit(
-            xc_f, xn_f, jnp.asarray(mc), mn_f, table,
-            cap=cap, ncells=ncells, box=box,
-            lj_eps=lj.epsilon, lj_sig=lj.sigma, lj_rcut=lj.rcut,
-        )
-        return jnp.sum(eb), jnp.stack([fx, fy, fz], axis=-1)
-
-    re_p, rf_p = rc(xs_p, mc_p)
-    re_h, rf_h = rc(xs_h, mc_h)
-    ra_p, ra_h = atom_forces(rf_p, mc_p), atom_forces(rf_h, mc_h)
-    np.testing.assert_allclose(ra_h, ra_p, atol=2e-4 * scale)
-    # cross-kernel: rescredit matches planar on the packed layout
-    np.testing.assert_allclose(ra_p, a_p, atol=2e-4 * scale)
-    assert abs(float(re_h) - float(re_p)) < 1e-3 * max(1.0, abs(float(re_p)))

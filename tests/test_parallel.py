@@ -1,4 +1,4 @@
-"""Multi-device tests on the virtual 8-device CPU mesh — the TPU-native
+"""Multi-device tests on the virtual 8-device CPU mesh — the JAX
 replacement for the reference's (untested in-repo) MPI paths."""
 
 import numpy as np
@@ -318,9 +318,10 @@ def test_sharded_cells_hills_logging(tmp_path):
 
 
 @pytest.mark.slow
-def test_slab_cell_host_matches_single_device():
-    """Slab-sharded slot-resident cells host (Newton kernel per x-slab +
-    halo, one psum/step) reproduces the single-device host's trajectory at
+@pytest.mark.parametrize("force_impl", ["xla", "triton"])
+def test_slab_cell_host_matches_single_device(force_impl, triton_interpret):
+    """Slab-sharded slot-resident cells host (owned-row force pass per
+    x-slab + halo, one psum/step) reproduces the single-device host's trajectory at
     kT > 0 — the slot-row-keyed thermostat noise draws identically under
     any decomposition, so only force-psum roundoff separates them — and
     the hill rounds replay bitwise."""
@@ -339,11 +340,12 @@ def test_slab_cell_host_matches_single_device():
     st0 = init_cell_state(spec, core)
 
     step1 = make_cell_step(
-        params, lp, LJParams(), spec, hill_stride=2, use_pallas=True
+        params, lp, LJParams(), spec, hill_stride=2, force_impl=force_impl
     )
     mesh = make_mesh(8)
     stepN = make_slab_cell_step(
-        params, lp, LJParams(), spec, hill_stride=2, mesh=mesh
+        params, lp, LJParams(), spec, hill_stride=2, mesh=mesh,
+        force_impl=force_impl,
     )
     s1, sN = st0, st0
     for _ in range(4):
@@ -422,7 +424,7 @@ def test_slab_sharded_hill_collection_matches_replicated():
         bias_state, x0, jax.random.PRNGKey(0), pair_lookup="chebyshev",
         cheb_deg=16, cheb_panels=4,
     )
-    st0 = init_cell_state(spec, core, with_ids=False)
+    st0 = init_cell_state(spec, core)
     step_sh = make_slab_cell_step(
         params, lp, LJParams(), spec, hill_stride=2, mesh=mesh,
         hill_capacity=512,
@@ -469,7 +471,7 @@ def test_shard_floor_bitwise():
         bias_state, x0, jax.random.PRNGKey(0), pair_lookup="chebyshev",
         cheb_deg=16, cheb_panels=4,
     )
-    st0 = init_cell_state(spec, core, with_ids=False)
+    st0 = init_cell_state(spec, core)
     step_f = make_slab_cell_step(
         params, lp, LJParams(), spec, hill_stride=2, mesh=mesh,
         hill_capacity=512,
@@ -493,13 +495,14 @@ def test_shard_floor_bitwise():
 
 @pytest.mark.slow
 @pytest.mark.parametrize("grid", [(2, 4), (3, 2), (2, 2, 2)])
-def test_brick_cell_host_matches_single_device(grid):
-    """Brick-decomposed cells host (Newton kernel per x-range x y-range
-    (x z-range) brick + halo ring, one psum/step over the mesh axes;
+@pytest.mark.parametrize("force_impl", ["xla", "triton"])
+def test_brick_cell_host_matches_single_device(grid, force_impl, triton_interpret):
+    """Brick-decomposed cells host (owned-row force pass per x-range x
+    y-range (x z-range) brick + halo ring, one psum/step over the mesh axes;
     brick-sharded hill collection merged by global row key) reproduces
     the single-device host's trajectory at kT > 0 (slot-row-keyed noise)
     — including ragged partitions (3 devices over 10 columns own 4/3/3)
-    and the 3-D (2, 2, 2) grid (the v4/v5p 3-D-torus decomposition)."""
+    and the 3-D (2, 2, 2) grid."""
     from edm_tpu.models.cells import CellSpec
     from edm_tpu.models.pair_edm_cells import init_cell_state, make_cell_step
     from edm_tpu.parallel import make_brick_mesh
@@ -513,14 +516,15 @@ def test_brick_cell_host_matches_single_device(grid):
         bias_state, x0, jax.random.PRNGKey(0), pair_lookup="chebyshev",
         cheb_deg=16, cheb_panels=4,
     )
-    st0 = init_cell_state(spec, core, with_ids=False)
+    st0 = init_cell_state(spec, core)
 
     step1 = make_cell_step(
-        params, lp, LJParams(), spec, hill_stride=2, use_pallas=True
+        params, lp, LJParams(), spec, hill_stride=2, force_impl=force_impl
     )
     mesh = make_brick_mesh(*grid)
     stepN = make_brick_cell_step(
-        params, lp, LJParams(), spec, hill_stride=2, mesh=mesh
+        params, lp, LJParams(), spec, hill_stride=2, mesh=mesh,
+        force_impl=force_impl,
     )
     s1, sN = st0, st0
     for _ in range(4):
@@ -544,9 +548,10 @@ def test_brick_cell_host_matches_single_device(grid):
 
 @pytest.mark.slow
 @pytest.mark.parametrize("grid", [(2, 2), (2, 2, 2)])
-def test_brick_cell_host_small_lattice_fallback(grid):
+@pytest.mark.parametrize("force_impl", ["xla", "triton"])
+def test_brick_cell_host_small_lattice_fallback(grid, force_impl, triton_interpret):
     """On lattices too small to slice a brick+halo window (wxm+2 > nx) the
-    brick host falls back to the full kernel with rows restricted to the
+    brick host falls back to the full lattice with rows restricted to the
     owned cells — trajectory and hill rounds still match the
     single-device host (2-D and 3-D grids)."""
     from edm_tpu.models.cells import CellSpec
@@ -562,14 +567,14 @@ def test_brick_cell_host_small_lattice_fallback(grid):
         bias_state, x0, jax.random.PRNGKey(0), pair_lookup="chebyshev",
         cheb_deg=16, cheb_panels=4,
     )
-    st0 = init_cell_state(spec, core, with_ids=False)
+    st0 = init_cell_state(spec, core)
     step1 = make_cell_step(
-        params, lp, LJParams(), spec, hill_stride=2, use_pallas=True,
-        hill_capacity=512,
+        params, lp, LJParams(), spec, hill_stride=2, hill_capacity=512,
+        force_impl=force_impl,
     )
     stepN = make_brick_cell_step(
         params, lp, LJParams(), spec, hill_stride=2,
-        mesh=make_brick_mesh(*grid), hill_capacity=512,
+        mesh=make_brick_mesh(*grid), hill_capacity=512, force_impl=force_impl,
     )
     s1, sN = st0, st0
     for _ in range(3):
@@ -608,7 +613,7 @@ def test_local_planar_collection_matches_global(mode, monkeypatch):
         bias_state, x0, jax.random.PRNGKey(0), pair_lookup="chebyshev",
         cheb_deg=16, cheb_panels=4,
     )
-    st0 = init_cell_state(spec, core, with_ids=False)
+    st0 = init_cell_state(spec, core)
 
     def build():
         if mode == "slab":
@@ -635,86 +640,3 @@ def test_local_planar_collection_matches_global(mode, monkeypatch):
     ):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     assert float(s_l.core.bias.cum_bias) > 0  # hills actually landed
-
-
-def test_owned_row_kernel_matches_full_window_rows():
-    """The owned-row kernel (``newton_lattice_force(..., rescredit=True,
-    row_box=...)`` — row programs over the owned sub-box only, r05) equals
-    the full-window rescredit pass with halo rows masked: halo rows
-    contribute exact zero adds, and owned cells are visited in the same
-    lexicographic order, so removing the halo programs changes no f32
-    accumulation.  This is the structural fix that removed the halo
-    ring's row-side compute from the sharded hosts (docs/perf.md)."""
-    from edm_tpu.models.cells import CellSpec, build_table
-    from edm_tpu.models.pair_edm_cells import (
-        _padded_cells,
-        newton_lattice_force,
-    )
-
-    rng = np.random.default_rng(7)
-    # a 6 x 5 x 3 "window" lattice (e.g. a 4x2-brick device's halo window)
-    box = [6 * 3.1, 5 * 3.1, 3 * 3.1]
-    n = 500
-    pts = rng.uniform(0.0, 1.0, (n, 3)) * np.asarray(box)
-    spec = CellSpec.create(box, cutoff=3.05, n_atoms=n)
-    assert spec.ncells == (6, 5, 3)
-    cfg = parse_edm_text(CFG)
-    params, bias_state = B.subdivide(
-        cfg, 1.0, 1.0, [0], [3.05], [0], [3.05], [False], [0],
-        dtype=jnp.float32,
-    )
-    core = pair_edm.init_state(
-        bias_state, jnp.asarray(pts, jnp.float32), jax.random.PRNGKey(0),
-        pair_lookup="chebyshev", cheb_deg=16, cheb_panels=4,
-    )
-    tbl = core.cheb
-
-    t = build_table(spec, jnp.asarray(pts, jnp.float32))
-    Cg = _padded_cells(spec)
-    cap = spec.cap
-    C = 6 * 5 * 3
-    aid = jnp.concatenate(
-        [t.aid, jnp.full((C * cap - spec.n_slots,), n, jnp.int32)]
-    ).reshape(C, cap)
-    if Cg > C:
-        aid = jnp.concatenate(
-            [aid, jnp.full((Cg - C, cap), n, jnp.int32)], 0
-        )
-    mc = (aid < n).astype(jnp.float32)
-    xs = jnp.where(
-        aid[..., None] < n,
-        jnp.asarray(pts, jnp.float32)[jnp.minimum(aid, n - 1)],
-        0.0,
-    )
-    # owned sub-box = [1, 4] x [1, 3] x [0, 3) (a 4x3-wide brick + halo
-    # ring in x, y; z unsharded): halo rows masked out of mc_rows
-    gx = np.arange(6)
-    gy = np.arange(5)
-    okx = (gx >= 1) & (gx <= 4)
-    oky = (gy >= 1) & (gy <= 3)
-    row_ok = (
-        okx[:, None, None] & oky[None, :, None] & np.ones((1, 1, 3), bool)
-    ).reshape(C)
-    if Cg > C:
-        row_ok = np.concatenate([row_ok, np.zeros(Cg - C, bool)])
-    mc_rows = mc * jnp.asarray(row_ok, jnp.float32)[:, None]
-
-    from edm_tpu.models.lj import LJParams
-
-    lj = LJParams()
-    f = {}
-    for name, rb in (
-        ("full", None),
-        ("owned", ((1, 1, 0), (4, 3, 3))),
-    ):
-        e, fr = jax.jit(
-            lambda xs, mc_rows, mc, rb=rb: newton_lattice_force(
-                xs, mc_rows, mc, spec.ncells, cap, spec.box, lj, tbl,
-                True, rescredit=True, row_box=rb,
-            )
-        )(xs, mc_rows, mc)
-        f[name] = (float(e), np.asarray(fr))
-    assert np.isfinite(f["owned"][1]).all()
-    assert np.abs(f["owned"][1]).max() > 0  # forces actually computed
-    np.testing.assert_array_equal(f["owned"][1], f["full"][1])
-    assert f["owned"][0] == pytest.approx(f["full"][0], rel=1e-6)

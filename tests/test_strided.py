@@ -217,7 +217,7 @@ def test_cells_pattern_segment_matches_dynamic():
 
 @pytest.mark.slow
 def test_cells_pattern_segment_bench_config_kt08_statistics():
-    """kT>0 guard on the EXACT pipeline bench.py ships (VERDICT r3 item 7):
+    """kT>0 guard on the EXACT pipeline bench.py ships:
     the RDF-targeted well-tempered pairwise workload at kT=0.8 with the
     static stride-cycle phases (hills+energy at 0, plain 1..8, rebuild
     at 9) driven by pattern_segment, against the dynamic-cond step
@@ -276,10 +276,10 @@ def test_cells_pattern_segment_bench_config_kt08_statistics():
         n_est=len(pts) * 40, pair_lookup="interp",
     )
     spec = CellSpec.create(box, cutoff=3.05, n_atoms=len(pts))
-    state = init_cell_state(spec, core, with_ids=False)
+    state = init_cell_state(spec, core)
     kw = dict(
         hill_stride=10, rebuild_stride=10, hill_capacity=512,
-        cell_chunk=81, use_pallas=False, energy_stride=10,
+        cell_chunk=81, energy_stride=10,
     )
     step_d = make_cell_step(params, lp, lj, spec, **kw)
     step_0 = make_cell_step(
